@@ -36,6 +36,8 @@ def pytest_configure(config):
     # tier-1 runs `-m 'not slow'`; the slow tier holds the long fuzz loops
     config.addinivalue_line(
         "markers", "slow: long fuzz/stress variants excluded from tier-1")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips where none is visible)")
     # debug-mode lock-order assertions (docs/ANALYSIS.md): every
     # lockdebug.named() site created after this point records real
     # acquisition orders and fails the suite on an inversion — the
