@@ -105,17 +105,55 @@ def minmax_identity(dtype: torch.dtype, func: str):
     return np.int64(info.max if func == "min" else info.min)
 
 
-def _run_aggs(aggs: list[AggSpec], sel, seg_sum, seg_minmax):
+@dataclass(eq=False)
+class Job:
+    """One per-(segment, group) reduction that ``_run_aggs`` asks for.
+
+    values: the column [nseg, n] as the evaluator hands it over, unmasked
+            and uncast, or None for a count of live rows
+    live:   the bool live mask [nseg, n] (sel, or sel & valid)
+    dtype:  the result dtype (int64 or float64 for sums and counts, the
+            column's own for min/max)
+    op:     "sum", "min" or "max"; ident: the min/max identity (a host
+            scalar), 0 for sums
+
+    A dead row contributes the identity: the reducer applies
+    ``live ? value : ident`` itself, so no masked copy is built here.
+    """
+    values: torch.Tensor | None
+    live: torch.Tensor
+    dtype: torch.dtype
+    op: str = "sum"
+    ident: object = 0
+
+
+def reduce_job(gid, D: int, job: Job):
+    """A Job's per-group [nseg, D] result in plain torch: the masking, then
+    a scatter over seg*D + gid."""
+    if job.values is None:
+        return segment_sum(gid, D, job.live.to(torch.int64))
+    vals = job.values
+    if job.op == "sum":
+        zero = torch.zeros((), dtype=job.dtype, device=vals.device)
+        return segment_sum(gid, D, torch.where(job.live, vals.to(job.dtype),
+                                               zero))
+    ident = job.ident.item() if hasattr(job.ident, "item") else job.ident
+    fill = torch.tensor(ident, dtype=vals.dtype, device=vals.device)
+    return segment_minmax(gid, D, torch.where(job.live, vals, fill), job.op,
+                          ident)
+
+
+def _run_aggs(aggs: list[AggSpec], sel, reduce, masks: dict | None = None):
     """The per-function aggregate semantics, shared by every grouping
-    regime. The reduce primitives are injected:
+    regime. The reduce primitive is injected: ``reduce(job)`` returns the
+    per-group [nseg, D] result of one ``Job`` descriptor.
 
-      seg_sum(build, dtype) -> per-group sums of build() (pre-masked to 0)
-      seg_minmax(build, dtype, func, ident) -> per-group min/max of build()
-        (pre-filled with the identity at dead/NULL rows)
-
-    Inputs arrive as zero-argument builders plus the dtype they produce:
-    eager torch has no dead-code elimination, so the fused path's replay
-    pass must be able to skip materializing them a second time.
+    Descriptors carry the unmasked column and its live mask, so the fused
+    kernel reads base columns in place and eager torch builds no masked
+    copy the kernel does not need. Live masks (sel & valid) are built once
+    per distinct valid mask; a caller that runs this twice over the same
+    specs (the fused path's record and replay) passes one ``masks`` dict to
+    both runs so the second builds none.
 
     Semantics kept in ONE place: count(*)/count ignore NULLs per column;
     sum of no rows is NULL; avg = float64 sum/count descaled by the decimal
@@ -124,12 +162,21 @@ def _run_aggs(aggs: list[AggSpec], sel, seg_sum, seg_minmax):
     out_vals: dict[str, torch.Tensor] = {}
     out_valid: dict[str, torch.Tensor | None] = {}
     counts_cache: dict = {}
+    masks = {} if masks is None else masks
+
+    def live_mask(spec):
+        if spec is None or spec.valid is None:
+            return sel
+        key = id(spec.valid)
+        if key not in masks:
+            masks[key] = (spec.valid, sel & spec.valid)
+        return masks[key][1]
 
     def live_count(spec):
         key = None if spec is None or spec.valid is None else id(spec.valid)
         if key not in counts_cache:
-            lv = sel if spec is None or spec.valid is None else (sel & spec.valid)
-            counts_cache[key] = seg_sum(lambda: lv.to(torch.int64), torch.int64)
+            counts_cache[key] = reduce(Job(None, live_mask(spec),
+                                           torch.int64))
         return counts_cache[key]
 
     live_count(None)
@@ -138,17 +185,15 @@ def _run_aggs(aggs: list[AggSpec], sel, seg_sum, seg_minmax):
             out_vals[spec.name] = live_count(None)
             out_valid[spec.name] = None
             continue
-        lv = sel if spec.valid is None else sel & spec.valid
         if spec.func == "count":
             out_vals[spec.name] = live_count(spec)
             out_valid[spec.name] = None
             continue
         vals = spec.values
+        lv = live_mask(spec)
         if spec.func in ("sum", "avg"):
             acc = torch.float64 if vals.dtype.is_floating_point else torch.int64
-            s = seg_sum(lambda vals=vals, lv=lv, acc=acc: torch.where(
-                lv, vals.to(acc), torch.zeros((), dtype=acc, device=vals.device)),
-                acc)
+            s = reduce(Job(vals, lv, acc))
             cnt = live_count(spec)
             if spec.func == "sum":
                 out_vals[spec.name] = s
@@ -165,11 +210,8 @@ def _run_aggs(aggs: list[AggSpec], sel, seg_sum, seg_minmax):
             # the identity stays a HOST scalar: the kernel's job table
             # carries it by value
             ident = minmax_identity(vals.dtype, spec.func)
-            out_vals[spec.name] = seg_minmax(
-                lambda vals=vals, lv=lv, ident=ident: torch.where(
-                    lv, vals, torch.tensor(ident.item(), dtype=vals.dtype,
-                                           device=vals.device)),
-                vals.dtype, spec.func, ident)
+            out_vals[spec.name] = reduce(Job(vals, lv, vals.dtype, spec.func,
+                                             ident))
             out_valid[spec.name] = live_count(spec) > 0
         else:
             raise NotImplementedError(spec.func)
@@ -178,10 +220,4 @@ def _run_aggs(aggs: list[AggSpec], sel, seg_sum, seg_minmax):
 
 def dense_aggregate(gid, D: int, aggs: list[AggSpec], sel):
     """aggregate() semantics over dense group ids."""
-    def seg_sum(build, dtype):
-        return segment_sum(gid, D, build())
-
-    def seg_minmax(build, dtype, func, ident):
-        return segment_minmax(gid, D, build(), func, ident.item())
-
-    return _run_aggs(aggs, sel, seg_sum, seg_minmax)
+    return _run_aggs(aggs, sel, lambda job: reduce_job(gid, D, job))

@@ -156,6 +156,21 @@ def test_fused_dense_aggregate_matches_jax_interpret(name, D, nseg, n, live,
     _compare(tvals, tvalids, jvals, jvalids, 0)
 
 
+def _table(gid, D, jobs):
+    """(values, op, ident) jobs, every row live -> the kernel's JobTable."""
+    live = torch.ones(gid.shape, dtype=torch.bool, device=gid.device)
+    descs = [tagg.Job(v, live, v.dtype if op != "sum" else
+                      (torch.float64 if v.dtype.is_floating_point
+                       else torch.int64), op, ident)
+             for v, op, ident in jobs]
+    return tfused.job_table(gid, D, descs)
+
+
+def _results(table):
+    out = tfused._segment_reduce_fused(table)
+    return [out[s] for s in table.slots]
+
+
 def test_fused_plain_version_float_and_identities():
     """The kernel's plain version on float64 and min/max jobs: groups
     without rows keep each job's identity, as the TPU kernel's scratch
@@ -167,7 +182,7 @@ def test_fused_plain_version_float_and_identities():
     i = torch.from_numpy(rng.integers(-50, 50, (nseg, n)))
     jobs = [(f, "sum", 0.0), (f, "min", float("inf")), (i, "max", -2**63),
             (i.to(torch.int32), "min", 2**31 - 1)]
-    out = tfused._segment_reduce_fused(gid, D, jobs)
+    out = _results(_table(gid, D, jobs))
     assert [o.dtype for o in out] == [torch.float64, torch.float64,
                                       torch.int64, torch.int64]
     for s in range(nseg):
@@ -185,8 +200,9 @@ def test_fused_plain_version_float_and_identities():
 
 def test_fused_wrapper_rejects_a_device_without_a_kernel():
     gid = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    table = _table(gid, 3, [(gid.to(torch.int64), "sum", 0)])
     with pytest.raises(ValueError, match="no kernel"):
-        tfused._segment_reduce_fused(gid, 3, [(gid.to(torch.int64), "sum", 0)])
+        tfused._segment_reduce_fused(table)
 
 
 @pytest.fixture
@@ -208,9 +224,9 @@ def test_fused_kernel_matches_plain_on_card(cuda_device, D):
             (f, "sum", 0.0), (f, "max", float("-inf"))]
     dev_jobs = [(v.to(cuda_device), op, ident) for v, op, ident in jobs]
     before = tfused.LAUNCHES
-    got = tfused._segment_reduce_fused(gid.to(cuda_device), D, dev_jobs)
+    got = _results(_table(gid.to(cuda_device), D, dev_jobs))
     assert tfused.LAUNCHES == before + 1
-    want = tfused._segment_reduce_plain(gid, D, jobs)
+    want = _results(_table(gid, D, jobs))
     for g, w in zip(got, want):
         g = g.cpu()
         if w.dtype == torch.float64:

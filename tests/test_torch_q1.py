@@ -90,17 +90,20 @@ def test_q1_fused_path_matches_jax_sql(jax_rows, data, monkeypatch):
     calls = []
     plain = fused_agg._segment_reduce_plain
 
-    def spy(gid, D, jobs):
-        calls.append((tuple(gid.shape), D, len(jobs)))
-        return plain(gid, D, jobs)
+    def spy(table):
+        calls.append((tuple(table.gid.shape), table.D, len(table.slots),
+                      len(table.jobs)))
+        return plain(table)
 
     monkeypatch.setattr(fused_agg, "_segment_reduce_plain", spy)
     rows = entry.run_q1(data, nseg=8, device="cpu",
                         settings=Settings(fused_dense_min_rows=1))
     _assert_rows_match(rows, jax_rows)
     # the partial and the final Aggregate both take the fused path here;
-    # the partial's 8 jobs: 1 live count, 4 sums, 3 avg sums
-    assert len(calls) == 2 and calls[0][1:] == (12, 8)
+    # the partial records 8 jobs (1 live count, 4 sums, 3 avg sums), of
+    # which 6 are distinct: avg(l_quantity) and avg(l_extendedprice) sum
+    # the same columns as sum_qty and sum_base_price
+    assert len(calls) == 2 and calls[0][1:] == (12, 8, 6)
     # at the default gate this tiny lineitem stays on the unfused path
     calls.clear()
     entry.run_q1(data, nseg=8, device="cpu")
