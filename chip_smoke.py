@@ -25,6 +25,15 @@ Phases, one JSON line each; any failure exits non-zero:
            the min/max in turn,
            the device memory peak and the host syncs of one warm SQL Q1
            (``--profile`` profiles one warm SQL Q1 too)
+  joins    TPC-H Q3 and Q12 as SQL on the sql phase's Database: orders
+           and customer loaded and analyzed beside lineitem; Q3 and Q12
+           exact against numpy references, Q3 through the sort-built hash
+           tables (no_direct) equal to its direct-path rows, Q12's fused
+           kernel launches per statement and its time at Q12's job table,
+           warm medians of SQL Q1, SQL Q3,
+           hash-path Q3 and SQL Q12 in turn, the host syncs of one warm Q3
+           on each path, the device memory peak (``--profile`` profiles
+           one warm Q3 on each path and one warm Q12)
   dryrun   the distributed step's exact-sum check
 
 then the kernel table, the nvidia-smi line, and as the last line
@@ -245,7 +254,8 @@ def _library_ms(torch, table, want) -> float:
     vals = []
     for c, m, _, _, _ in table.jobs:
         live = table.masks[m] if m >= 0 else None
-        v = table.cols[c] if c >= 0 else torch.ones_like(gid, dtype=torch.int64)
+        v = table.cols[c].to(torch.int64) if c >= 0 \
+            else torch.ones_like(gid, dtype=torch.int64)
         vals.append((v if live is None else torch.where(live, v, 0)).reshape(-1))
     stacked = torch.stack(vals, dim=1)
     del vals
@@ -265,8 +275,7 @@ def _library_ms(torch, table, want) -> float:
 
 
 def _timed_form(torch, table, name: str, reps: int) -> dict:
-    """Kernel, plain and library times of one table at Q1's shapes, and
-    its bound. The library yardstick, for a table of sums, is ONE
+    """Kernel, plain and library times of one job table, and its bound. The library yardstick, for a table of sums, is ONE
     index_add_ of the stacked, already masked job values into
     [nseg * D, jobs] (the masking and stacking are not timed; the port
     never calls it); other tables have none."""
@@ -640,14 +649,15 @@ def sync_census(torch, fn) -> dict:
 
 
 def phase_sql(torch, data, nseg: int, reps: int, name: str, q1_table,
-              q1_rows, q1_ref, profile: bool = False) -> int:
+              q1_rows, q1_ref, profile: bool = False):
     """SQL in, rows out through greengage_tpu_torch.connect at the data
     the q1 phase generated: DDL, a bulk load of lineitem, ANALYZE, then Q1
     and Q6 as text. Q1 must equal the numpy reference exactly and the
     physical plan's rows, launching the fused kernel exactly once per
     statement with no host synchronisation inside the aggregate; Q6 must
-    equal its numpy reference exactly. -> the kernel's launches in the
-    main path's run (one cold Q1 and one cold Q6)."""
+    equal its numpy reference exactly. -> (the kernel's launches in the
+    main path's run (one cold Q1 and one cold Q6), the Database, which the
+    joins phase goes on with)."""
     import greengage_tpu_torch
     from greengage_tpu_torch import entry
     from greengage_tpu_torch.ops import fused_agg
@@ -768,6 +778,266 @@ def phase_sql(torch, data, nseg: int, reps: int, name: str, q1_table,
           "syncs_per_warm_q1": sum(syncs.values()), "sync_sites": syncs,
           "fused_dense_agg_launches": launches, "q6_revenue": got6,
           "ok": True})
+    return launches, db
+
+
+# ---------------------------------------------------------------------------
+# joins and sort-based grouping: TPC-H Q3 and Q12 as SQL
+# ---------------------------------------------------------------------------
+
+# the plan corpus's Q3 (shipping priority) and Q12 (shipping modes and
+# order priority), as a user sends them
+SQL_Q3 = """
+      select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+             o_orderdate, o_shippriority
+      from customer, orders, lineitem
+      where c_mktsegment = 'BUILDING'
+        and c_custkey = o_custkey and l_orderkey = o_orderkey
+        and o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15'
+      group by l_orderkey, o_orderdate, o_shippriority
+      order by revenue desc, o_orderdate limit 10"""
+SQL_Q12 = """
+      select l_shipmode,
+             sum(case when o_orderpriority = '1-URGENT'
+                       or o_orderpriority = '2-HIGH' then 1 else 0 end)
+               as high_line_count,
+             sum(case when o_orderpriority <> '1-URGENT'
+                       and o_orderpriority <> '2-HIGH' then 1 else 0 end)
+               as low_line_count
+      from orders, lineitem
+      where o_orderkey = l_orderkey
+        and l_shipmode in ('MAIL', 'SHIP')
+        and l_commitdate < l_receiptdate and l_shipdate < l_commitdate
+        and l_receiptdate >= date '1994-01-01'
+        and l_receiptdate < date '1995-01-01'
+      group by l_shipmode order by l_shipmode"""
+
+
+def q3_reference(data: dict) -> list:
+    """Independent numpy Q3: filters by the BUILDING code and the dates,
+    joins by indexing (the keys are dense and 1-based), sums
+    extendedprice x (100 - discount) (scale 4) per orderkey with
+    np.add.at. -> every group as (revenue, orderdate, orderkey), in the
+    query's order (revenue desc, orderdate), ties by orderkey."""
+    c, o, li = data["customer"], data["orders"], data["lineitem"]
+    seg = c["c_mktsegment"]
+    cust_ok = np.zeros(len(c["c_custkey"]) + 1, bool)
+    cust_ok[c["c_custkey"]] = seg.codes == seg.vocab.index("BUILDING")
+    cut = _days("1995-03-15")
+    order_ok = np.zeros(len(o["o_orderkey"]) + 1, bool)
+    order_ok[o["o_orderkey"]] = ((o["o_orderdate"] < cut)
+                                 & cust_ok[o["o_custkey"]])
+    ok = order_ok[li["l_orderkey"]] & (li["l_shipdate"] > cut)
+    keys = li["l_orderkey"][ok]
+    rev = np.zeros(len(order_ok), np.int64)
+    np.add.at(rev, keys, li["l_extendedprice"][ok].astype(np.int64)
+              * (100 - li["l_discount"][ok].astype(np.int64)))
+    odate = np.zeros(len(order_ok), np.int64)
+    odate[o["o_orderkey"]] = o["o_orderdate"]
+    groups = np.unique(keys)
+    order = np.lexsort((groups, odate[groups], -rev[groups]))
+    g = groups[order]
+    return list(zip(rev[g].tolist(), odate[g].tolist(), g.tolist()))
+
+
+def check_q3(res, ref: list) -> None:
+    """Q3's rows against the reference: the (revenue, orderdate) sequence
+    exactly; the orderkeys as a multiset within each run of equal
+    (revenue, orderdate), where the query leaves the order open."""
+    ids = dict(zip(res.columns, res._order))
+    got = list(zip(res.raw[ids["revenue"]].tolist(),
+                   res.raw[ids["o_orderdate"]].tolist(),
+                   res.raw[ids["l_orderkey"]].tolist()))
+    if [(r, d) for r, d, _ in got] != [(r, d) for r, d, _ in ref[:10]]:
+        raise AssertionError(f"Q3 (revenue, orderdate) {got} != {ref[:10]}")
+    groups = set(ref)
+    if len(set(got)) != len(got) or not groups.issuperset(got):
+        raise AssertionError(f"Q3 rows {got} are not distinct groups")
+    if any(int(v) != 0 for v in res.raw[ids["o_shippriority"]]):
+        raise AssertionError("Q3 o_shippriority is not 0")
+
+
+def q12_reference(data: dict) -> list:
+    """Independent numpy Q12: the lineitem filter, each line's order
+    priority by indexing orders (dense, 1-based keys), and the high and
+    low line counts per shipmode. -> [(shipmode, high, low)] by name."""
+    o, li = data["orders"], data["lineitem"]
+    mode = li["l_shipmode"]
+    wanted = [mode.vocab.index("MAIL"), mode.vocab.index("SHIP")]
+    ok = (np.isin(mode.codes, wanted)
+          & (li["l_commitdate"] < li["l_receiptdate"])
+          & (li["l_shipdate"] < li["l_commitdate"])
+          & (li["l_receiptdate"] >= _days("1994-01-01"))
+          & (li["l_receiptdate"] < _days("1995-01-01")))
+    pri = o["o_orderpriority"]
+    high_codes = [pri.vocab.index("1-URGENT"), pri.vocab.index("2-HIGH")]
+    high_of = np.zeros(len(o["o_orderkey"]) + 1, bool)
+    high_of[o["o_orderkey"]] = np.isin(pri.codes, high_codes)
+    high = high_of[li["l_orderkey"][ok]]
+    codes = mode.codes[ok]
+    out = []
+    for code in sorted(wanted, key=lambda c: mode.vocab[c]):
+        m = codes == code
+        out.append((mode.vocab[code], int((m & high).sum()),
+                    int((m & ~high).sum())))
+    return out
+
+
+def check_q12(res, ref: list) -> None:
+    got = [(str(m), int(h), int(lo)) for m, h, lo in res.rows()]
+    if got != ref:
+        raise AssertionError(f"Q12 {got} != numpy {ref}")
+
+
+def phase_joins(torch, data, db, nseg: int, reps: int, name: str,
+                profile: bool = False) -> int:
+    """TPC-H Q3 and Q12 as SQL on the sql phase's Database: load orders and
+    customer beside lineitem and ANALYZE them; Q3 (three-way join, a
+    GROUP BY without a dense domain, ORDER BY ... LIMIT) and Q12 (a join
+    into the fused kernel's GROUP BY) equal numpy references exactly; Q3
+    through the sort-built hash tables (no_direct) equals its direct-path
+    rows; every warm Q12 launches the fused kernel once; warm medians of
+    SQL Q1, SQL Q3, Q3 over the hash path and SQL Q12 in turn; the kernel
+    against its plain version and its bound at Q12's job table; the host
+    syncs of one warm Q3 on each path; the device memory peak. -> the
+    kernel's launches in the main path's run (one cold Q3, one cold
+    Q12)."""
+    from greengage_tpu_torch.ops import fused_agg
+    from greengage_tpu_torch.sql.parser import parse
+    from greengage_tpu_torch.types import Coded
+
+    torch.cuda.reset_peak_memory_stats()
+    load_s = {}
+    for table in ("orders", "customer"):
+        cols = dict(data[table])
+        if table == "customer":
+            # c_name is unique per row: bulk-coded, so it stays a
+            # dictionary column (raw TEXT is not ported; Q3 never reads it)
+            names = cols["c_name"]
+            cols["c_name"] = Coded(list(names),
+                                   np.arange(len(names), dtype=np.int32))
+        t = time.perf_counter()
+        db.load_table(table, cols)
+        db.sql(f"analyze {table}")
+        load_s[table] = time.perf_counter() - t
+
+    # the main path: every launch count set to 0 just before, read after
+    fused_agg.LAUNCHES = 0
+    t = time.perf_counter()
+    res3 = db.sql(SQL_Q3)
+    torch.cuda.synchronize()
+    cold3_s = time.perf_counter() - t
+    q3_launches = fused_agg.LAUNCHES
+    t = time.perf_counter()
+    res12 = db.sql(SQL_Q12)
+    torch.cuda.synchronize()
+    cold12_s = time.perf_counter() - t
+    launches = fused_agg.LAUNCHES
+    # Q12's partial Aggregate takes the kernel once per run of its plan;
+    # a first run that met duplicate build keys ran the unique-key plan too
+    want12 = 1 + res12.stats["multi_join_replan"]
+    if q3_launches != 0 or launches != want12:
+        raise AssertionError(f"Q3 launched the fused kernel {q3_launches} "
+                             f"times and Q12 {launches - q3_launches}, "
+                             f"expected 0 and {want12}")
+    t = time.perf_counter()
+    ref3 = q3_reference(data)
+    ref12 = q12_reference(data)
+    ref_s = time.perf_counter() - t
+    check_q3(res3, ref3)
+    check_q12(res12, ref12)
+
+    planned3, consts3, _ = db._plan(parse(SQL_Q3)[0])
+
+    def hash_q3():
+        return db.executor.run(planned3, consts3, no_direct=True)
+
+    hashed = hash_q3()
+    if hashed.rows() != res3.rows():
+        raise AssertionError("Q3 over the hash tables differs from the "
+                             "direct path")
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    warm = {"sql_q1": [], "sql_q3": [], "hash_q3": [], "sql_q12": []}
+    for i in range(reps + 1):
+        _, s1 = timed(lambda: db.sql(SQL_Q1))
+        again3, s2 = timed(lambda: db.sql(SQL_Q3))
+        againh, s3 = timed(hash_q3)
+        before = fused_agg.LAUNCHES
+        again12, s4 = timed(lambda: db.sql(SQL_Q12))
+        if fused_agg.LAUNCHES != before + 1:
+            raise AssertionError("a warm SQL Q12 did not launch the fused "
+                                 "kernel exactly once")
+        if i:
+            for k, v in zip(warm, (s1, s2, s3, s4)):
+                warm[k].append(v)
+    check_q3(again3, ref3)
+    check_q12(again12, ref12)
+    if againh.rows() != again3.rows():
+        raise AssertionError("a warm hash-path Q3 differs")
+
+    # the job table a warm Q12 hands the kernel (gid, the join's
+    # selection, the CASE columns), timed as the kernel phase times Q1's
+    tables = []
+    fused = fused_agg._segment_reduce_fused
+
+    def keep(table):
+        tables.append(table)
+        return fused(table)
+
+    fused_agg._segment_reduce_fused = keep
+    try:
+        check_q12(db.sql(SQL_Q12), ref12)
+    finally:
+        fused_agg._segment_reduce_fused = fused
+    q12_kernel = _timed_form(torch, tables[0], "Q12 partial aggregate over "
+                             "the join output (Q12's job table)", 20)
+    del tables
+
+    # the direct path waits for the card in the executor only (the flags
+    # and the presentation); the hash path's walk reads the host too
+    syncs = sync_census(torch, lambda: db.sql(SQL_Q3))
+    inside = [s for s in syncs
+              if not s.startswith("greengage_tpu_torch/exec/executor.py:")]
+    if inside:
+        raise AssertionError(f"a warm SQL Q3 synchronised outside the "
+                             f"executor: {syncs}")
+    hash_syncs = sync_census(torch, hash_q3)
+    if profile:
+        emit(dict(profile_q1(torch, lambda: db.sql(SQL_Q3)), path="sql q3"))
+        emit(dict(profile_q1(torch, hash_q3), path="q3 hash tables"))
+        emit(dict(profile_q1(torch, lambda: db.sql(SQL_Q12)),
+                  path="sql q12"))
+    med = {k: statistics.median(v) for k, v in warm.items()}
+    emit({"phase": "joins", "nseg": nseg, "device": name,
+          "orders_rows": len(data["orders"]["o_orderkey"]),
+          "customer_rows": len(data["customer"]["c_custkey"]),
+          "load_analyze_s": load_s, "reference_s": ref_s,
+          "q3_cold_s": cold3_s, "q12_cold_s": cold12_s,
+          "q3_cold_stats": {k: v for k, v in res3.stats.items()
+                            if k != "metrics"},
+          "q12_cold_stats": {k: v for k, v in res12.stats.items()
+                             if k != "metrics"},
+          "warm_median_s": med, "warm_s": warm,
+          "q3_warm_stats": {k: v for k, v in again3.stats.items()
+                            if k != "metrics"},
+          "hash_q3_warm_stats": {k: v for k, v in againh.stats.items()
+                                 if k != "metrics"},
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "syncs_per_warm_q3": sum(syncs.values()), "sync_sites": syncs,
+          "syncs_per_warm_hash_q3": sum(hash_syncs.values()),
+          "hash_sync_sites": hash_syncs,
+          "q3_first_row": [str(v) for v in res3.rows()[0]],
+          "q12_rows": [[str(v) for v in r] for r in res12.rows()],
+          "q12_kernel_ms": q12_kernel["ms"],
+          "q12_kernel_bound_ms": q12_kernel["bound_ms"],
+          "q12_kernel_max_abs_err": q12_kernel["max_abs_err"],
+          "fused_dense_agg_launches": launches, "ok": True})
     db.close()
     return launches
 
@@ -817,13 +1087,19 @@ def main() -> int:
           "seconds": time.perf_counter() - t})
     plan_launches, q1_rows, q1_table, q1_ref = phase_q1(
         torch, dev, data, args.sf, args.nseg, args.reps, name, args.profile)
-    sql_launches = phase_sql(torch, data, args.nseg, args.reps, name,
-                             q1_table, q1_rows, q1_ref, args.profile)
-    del data, q1_table
+    sql_launches, db = phase_sql(torch, data, args.nseg, args.reps, name,
+                                 q1_table, q1_rows, q1_ref, args.profile)
+    del q1_table
     torch.cuda.empty_cache()
-    # the SQL path is this slice's main path; the physical plan's stays
-    kernel["launches"] = sql_launches
-    kernel["launches_by_path"] = {"sql": sql_launches,
+    join_launches = phase_joins(torch, data, db, args.nseg, args.reps, name,
+                                args.profile)
+    del data, db
+    torch.cuda.empty_cache()
+    # the joins path (cold Q3 and Q12) is this slice's main path; the SQL
+    # Q1/Q6 and physical-plan paths stay, each read as it was driven
+    kernel["launches"] = join_launches
+    kernel["launches_by_path"] = {"sql_q12": join_launches,
+                                  "sql": sql_launches,
                                   "q1_plan": plan_launches}
 
     emit({"phase": "dryrun", "nseg": args.nseg,

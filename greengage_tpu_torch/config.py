@@ -13,6 +13,12 @@ from dataclasses import dataclass
 
 @dataclass
 class Settings:
+    # join probe-chain BOUND: the probe walk runs only as deep as the worst
+    # real chain (2-4 at load 1/3); the bound only caps pathological
+    # chains, flagging overflow for the bigger-table retry tier
+    hash_num_probes: int = 32
+    hash_table_min: int = 256
+    hash_table_max: int = 1 << 25
     # dense group-by path: used when the product of group-key domains
     # (dictionary sizes / bool) is at most this (scatter-free aggregation)
     dense_group_limit: int = 512

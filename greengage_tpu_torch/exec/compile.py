@@ -11,19 +11,23 @@ The contract with the caller is the JAX package's: overflow flags
 (motion bucket, gather compaction) and metrics (Filter row counts,
 compaction totals) come back by name beside the output columns.
 
-Lowered here: Scan, Filter, Project, Aggregate (dense grouping and
-scalar, single/partial/final, with the fused-kernel gate), PartialState,
-Motion (Redistribute, Broadcast), Sort and Limit, plus the pre-Gather
-compaction. Join, Window, Union, ConstRel and the sort-based grouping path
-raise NotImplementedError naming the ROADMAP item that ports them — at
-compile time, before anything runs.
+Lowered here: Scan, Filter, Project, Join (inner, left, semi, anti,
+null-aware anti and cross; unique, multi-match and direct-addressed),
+Aggregate (dense, sort-based and scalar grouping, single/partial/final,
+with the fused-kernel gate), PartialState, Motion (Redistribute,
+Broadcast), Sort and Limit, plus the pre-Gather compaction. Window, Union
+and ConstRel raise NotImplementedError naming the ROADMAP item that ports
+them — at compile time, before anything runs.
 
 Capacities follow the JAX compiler: a Redistribute's per-destination
-bucket and the pre-Gather compaction grow 4x per retry tier, and an
-overflowed compaction re-runs at its exact reported size
-(``cap_overrides``, keyed by preorder plan-node ordinals so they survive a
-recompile). Scan capacities are the largest segment's row count: eager
-torch has no compiled executable to reuse across pow2 buckets.
+bucket, a join's hash table and expansion and a sort-based Aggregate's
+group table grow 4x per retry tier, and an overflow that reports its exact
+need (the pre-Gather compaction, a join expansion, a group count) re-runs
+at that size (``cap_overrides``, keyed by preorder plan-node ordinals so
+they survive a recompile). A key-packing bounds violation (stale ANALYZE
+stats) re-runs the same tier with that node unpacked (``pack_disabled``).
+Scan capacities are the largest segment's row count: eager torch has no
+compiled executable to reuse across pow2 buckets.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from greengage_tpu_torch.config import Settings
 from greengage_tpu_torch.ops import agg as agg_ops
 from greengage_tpu_torch.ops import fused_agg
 from greengage_tpu_torch.ops import hashing
+from greengage_tpu_torch.ops import join as join_ops
 from greengage_tpu_torch.ops import sort as sort_ops
 from greengage_tpu_torch.ops.batch import Batch
 from greengage_tpu_torch.ops.expr_eval import Evaluator, descale
@@ -47,8 +52,8 @@ from greengage_tpu_torch.parallel import motion as motion_ops
 from greengage_tpu_torch.parallel.mesh import SegmentLayout
 from greengage_tpu_torch.planner.locus import LocusKind
 from greengage_tpu_torch.planner.logical import (
-    Aggregate, Filter, Limit, Motion, MotionKind, PartialState, Plan, Project,
-    Scan, Sort,
+    Aggregate, Filter, Join, Limit, Motion, MotionKind, PartialState, Plan,
+    Project, Scan, Sort,
 )
 
 VALID_PREFIX = "@v:"
@@ -56,12 +61,10 @@ VALID_PREFIX = "@v:"
 # nodes of the JAX compiler this port does not lower yet -> the ROADMAP
 # item that ports them
 _UNPORTED = {
-    "Join": "joins: ROADMAP Queue 1 item 3",
     "Window": "windows: ROADMAP Queue 1 item 4",
     "Union": "UNION: ROADMAP Queue 1 item 4",
     "ConstRel": "constant relations: ROADMAP Queue 1 item 4",
 }
-_SORT_AGG = "sort-based grouping: ROADMAP Queue 1 item 2"
 
 
 def _pow2(n: float) -> int:
@@ -115,6 +118,9 @@ class CompileResult:
     flag_caps: dict = field(default_factory=dict)
     # an Aggregate passed the fused kernel's gate and runs through it
     uses_fused: bool = False
+    # pack-overflow flag name -> plan-node ordinal: a bounds violation
+    # re-runs the same tier with that node's key packing disabled
+    flag_packs: dict = field(default_factory=dict)
 
 
 class Compiler:
@@ -122,12 +128,16 @@ class Compiler:
     when no ``dictionary`` resolver is given, their dictionaries).
     ``dictionary(ref)`` -> the code -> string list of a (table, column)
     or derived dictionary ref. ``consts``: the binder's constant pool;
-    host arrays in it (LUTs) go to the device once, here."""
+    host arrays in it (LUTs) go to the device once, here.
+    ``pack_disabled``: plan-node ordinals whose key packing is off (a
+    bounds violation in an earlier attempt); ``no_direct`` turns off the
+    direct-addressed join, so every join builds the hash table."""
 
     def __init__(self, layout: SegmentLayout, tables: dict[str, TableData],
                  settings: Settings | None = None, consts: dict | None = None,
                  dictionary=None, tier: int = 0,
-                 cap_overrides: dict | None = None):
+                 cap_overrides: dict | None = None,
+                 pack_disabled: set | None = None, no_direct: bool = False):
         self.layout = layout
         self.nseg = layout.nseg
         self.device = layout.device
@@ -139,9 +149,12 @@ class Compiler:
         self._dictionary = dictionary
         self.tier = tier
         self.cap_overrides = dict(cap_overrides or {})
+        self.pack_disabled = set(pack_disabled or ())
+        self.no_direct = no_direct
         self.flags: list[str] = []
         self.metrics: list[str] = []
         self.flag_caps: dict = {}
+        self.flag_packs: dict = {}
         self.uses_fused = False
         self._nids: dict[int, int] = {}
         self._luts: dict = {}
@@ -150,7 +163,7 @@ class Compiler:
     def compile(self, plan: Motion) -> CompileResult:
         assert isinstance(plan, Motion) and plan.kind is MotionKind.GATHER
         self.flags, self.metrics = [], []
-        self.flag_caps, self.uses_fused = {}, False
+        self.flag_caps, self.flag_packs, self.uses_fused = {}, {}, False
         # stable plan-node identity: preorder ordinals (cap_overrides cross
         # recompiles of the same plan in the executor's retry loop)
         self._nids = {}
@@ -223,7 +236,8 @@ class Compiler:
             program=program, out_cols=out_cols, flag_names=flag_names,
             metric_names=metric_names, merge_keys=plan.merge_keys,
             host_limit=host_limit, replicated=replicated,
-            flag_caps=dict(self.flag_caps), uses_fused=self.uses_fused)
+            flag_caps=dict(self.flag_caps), uses_fused=self.uses_fused,
+            flag_packs=dict(self.flag_packs))
 
     def _nid(self, plan) -> int:
         """Stable preorder ordinal of a plan node (see compile())."""
@@ -261,14 +275,44 @@ class Compiler:
             if plan.limit is not None:
                 return min(cap, plan.limit + plan.offset)
             return cap
+        if isinstance(plan, Join):
+            probe_cap = self._capacity_of(plan.left)
+            if plan.kind == "cross":
+                return probe_cap * max(self._capacity_of(plan.right), 1)
+            if plan.multi and plan.kind in ("inner", "left"):
+                if self._nid(plan) in self.cap_overrides:
+                    # exact cardinality reported by the overflowed run
+                    return _pow2(max(int(self.cap_overrides[self._nid(plan)]),
+                                     64))
+                # CSR expansion output capacity from the cardinality
+                # estimate; est_rows is CLUSTER-GLOBAL, the batch is per
+                # segment — divide by width for partitioned loci (skew is
+                # caught by the exact-count overflow retry)
+                est = max(plan.est_rows, 64.0) * 1.5
+                if plan.locus is not None and plan.locus.is_partitioned \
+                        and self.nseg > 1:
+                    est /= self.nseg
+                base = max(int(est) + 64, probe_cap // 4)
+                return _pow2(base) * (4 ** self.tier)
+            return probe_cap
         if isinstance(plan, Aggregate):
             if not plan.group_keys:
                 return 1
             dense = self._dense_domains(plan)
-            d = 1
-            for dom in dense:
-                d *= dom
-            return d
+            if dense is not None:
+                d = 1
+                for dom in dense:
+                    d *= dom
+                return d
+            # sort-based path: output capacity = estimated group count with
+            # slack; never more than the child batch (groups <= rows), and
+            # an exact-count retry tightens it after an overflow
+            child_cap = self._capacity_of(plan.child)
+            if self._nid(plan) in self.cap_overrides:
+                return min(_pow2(max(int(self.cap_overrides[self._nid(plan)]),
+                                     64)), child_cap)
+            est = int(max(plan.est_rows, 16.0) * 1.3) + 64
+            return min(_pow2(est) * (4 ** self.tier), child_cap)
         if isinstance(plan, Motion):
             child_cap = self._capacity_of(plan.child)
             if plan.kind is MotionKind.BROADCAST:
@@ -288,9 +332,12 @@ class Compiler:
         table, col = ref
         return self.tables[table].dicts[col]
 
-    def _dense_domains(self, plan: Aggregate) -> list[int]:
-        """Per-key dense domains (|dict|+1 / bool 3). Grouping that has no
-        such domain takes the sort-based path, which is not ported yet."""
+    def _dense_domains(self, plan: Aggregate) -> list[int] | None:
+        """Per-key dense domains (|dict|+1 / bool 3) when every group key has
+        a known finite domain and the product fits the dense limit; None
+        sends the grouping down the sort-based path."""
+        if not plan.group_keys:
+            return None
         domains = []
         prod = 1
         for ci, e in plan.group_keys:
@@ -311,9 +358,30 @@ class Compiler:
             if prod > self.s.dense_group_limit:
                 domains = None
                 break
-        if domains is None:
-            raise NotImplementedError(_SORT_AGG)
         return domains
+
+    def _join_table_size(self, build_cap: int) -> int:
+        # 3x headroom keeps the load factor under ~1/3: expected chain ~1.5
+        # rounds, and the probe walk only pays what it walks
+        m = _pow2(build_cap * 3) * (4 ** self.tier)
+        return max(self.s.hash_table_min, min(m, self.s.hash_table_max))
+
+    def _join_probes(self) -> int:
+        return self.s.hash_num_probes * (2 ** min(self.tier, 2))
+
+    def _pack_flag(self, plan, bounds, pack_bits):
+        """-> (bounds, flag name) when ``plan`` packs its keys into one word
+        from ANALYZE ``bounds`` (``pack_bits(bounds)`` not None and packing
+        not disabled by an earlier violation), else (None, None). The flag
+        reports a live key outside the bounds; the executor then re-runs
+        the same tier with this node unpacked."""
+        if (bounds is None or self._nid(plan) in self.pack_disabled
+                or pack_bits(bounds) is None):
+            return None, None
+        fid = f"pack_overflow_{len(self.flags)}"
+        self.flags.append(fid)
+        self.flag_packs[fid] = self._nid(plan)
+        return bounds, fid
 
     # ------------------------------------------------------------------
     # node compilation (returns closures ctx -> Batch)
@@ -418,18 +486,306 @@ class Compiler:
             specs.append(agg_ops.KeySpec(v, valid, e.type, hash_lut=lut))
         return specs
 
+    # ---- joins ---------------------------------------------------------
+    def _c_join(self, plan: Join):
+        if plan.kind == "cross":
+            return self._c_join_cross(plan)
+        if plan.multi:
+            return self._c_join_multi(plan)
+        left_fn = self._compile_node(plan.left)
+        right_fn = self._compile_node(plan.right)
+        build_cap = self._capacity_of(plan.right)
+        M = self._join_table_size(build_cap)
+        probes = self._join_probes()
+        lkeys, rkeys = plan.left_keys, plan.right_keys
+        kind = plan.kind
+        residual = plan.residual
+        fid_ov = f"join_overflow_{len(self.flags)}"
+        self.flags.append(fid_ov)
+        fid_dup = None
+        if kind in ("inner", "left"):
+            # semi/anti only need existence: duplicate build keys are fine
+            fid_dup = f"join_dup_{len(self.flags)}"
+            self.flags.append(fid_dup)
+        right_cols = plan.right.out_cols()
+        null_aware = plan.null_aware
+        # direct addressing at tier 0 only: a build-overflow retry (stale
+        # stats: live keys outside the analyzed domain) takes the general
+        # hash table at tier 1
+        direct = (plan.direct_domain is not None and self.tier == 0
+                  and len(rkeys) == 1 and not self.no_direct)
+        direct_lo = plan.direct_lo or 0
+        direct_domain = plan.direct_domain or 0
+        jkb, fid_pack = (None, None) if direct else self._pack_flag(
+            plan, getattr(plan, "key_bounds", None), join_ops.join_pack_bits)
+
+        def run(ctx):
+            lb = left_fn(ctx)
+            rb = right_fn(ctx)
+            rspecs = self._value_specs(rb, rkeys)
+            lspecs = self._value_specs(lb, lkeys)
+            if direct:
+                table = join_ops.build_direct(
+                    rspecs[0], rb.selection(), direct_lo, direct_domain)
+                matched, brow = join_ops.probe_direct(
+                    table, lspecs[0], lb.selection(), direct_lo)
+                overflow = table.overflow
+            else:
+                table = join_ops.build(rspecs, rb.selection(), M, probes, jkb)
+                matched, brow, walk_ov = join_ops.probe(
+                    table, lspecs, lb.selection(), probes)
+                if fid_pack is not None:
+                    ctx["flags"].append((fid_pack, table.pack_viol))
+                overflow = walk_ov
+            ctx["flags"].append((fid_ov, overflow))
+            if fid_dup is not None:
+                ctx["flags"].append((fid_dup, table.dup))
+            cols = dict(lb.cols)
+            valids = dict(lb.valids)
+            sel = lb.selection()
+            if kind in ("inner", "semi"):
+                sel = sel & matched
+            elif kind == "anti" and null_aware:
+                # NOT IN semantics: an empty subquery qualifies every row;
+                # otherwise NULL probe keys and any NULL subquery key
+                # disqualify (the result is NULL, so filtered). The
+                # subquery's emptiness and NULLs are over every segment: a
+                # reduction over the whole tensor, on the device
+                rsel = rb.selection()
+                s_nonempty = rsel.any()
+                s_has_null = torch.zeros((), dtype=torch.bool,
+                                         device=sel.device)
+                x_null = torch.zeros_like(sel)
+                for sp in rspecs:
+                    if sp.valid is not None:
+                        s_has_null = s_has_null | (rsel & ~sp.valid).any()
+                for sp in lspecs:
+                    if sp.valid is not None:
+                        x_null = x_null | ~sp.valid
+                sel = sel & torch.where(s_nonempty,
+                                        ~x_null & ~matched & ~s_has_null,
+                                        True)
+            elif kind == "anti":
+                sel = sel & ~matched
+            if kind in ("inner", "left"):
+                g_cols, g_valids = join_ops.gather_build_columns(
+                    {c.id: rb.cols[c.id] for c in right_cols},
+                    {c.id: rb.valids.get(c.id) for c in right_cols},
+                    brow, matched)
+                cols.update(g_cols)
+                valids.update(g_valids)
+            out = Batch(cols, valids, sel)
+            if residual is not None:
+                mask = Evaluator(out, self.consts).predicate(residual)
+                if kind == "left":
+                    # the residual only disqualifies the match, not the row
+                    newm = matched & mask
+                    for c in right_cols:
+                        out.valids[c.id] = out.valids[c.id] & newm
+                else:
+                    out = out.with_sel(out.selection() & mask)
+            return out
+
+        return run
+
+    def _value_specs(self, batch: Batch, exprs):
+        """Keys as values and NULL masks only: joins and the sort-based
+        grouping compare TEXT codes (the binder puts both sides of a join
+        in one code space), so no dictionary hash LUT is needed."""
+        ev = Evaluator(batch, self.consts)
+        return [agg_ops.KeySpec(*ev.column(e), e.type) for e in exprs]
+
+    def _c_join_cross(self, plan: Join):
+        """Cartesian pairing by repeat/tile index expansion — practical for
+        the small (usually broadcast) build sides the planner produces;
+        capacity = |L| x |B|."""
+        left_fn = self._compile_node(plan.left)
+        right_fn = self._compile_node(plan.right)
+        Lcap = self._capacity_of(plan.left)
+        Bcap = max(self._capacity_of(plan.right), 1)
+
+        def run(ctx):
+            lb = left_fn(ctx)
+            rb = right_fn(ctx)
+            S = lb.selection().shape[0]
+            dev = lb.device
+            li = torch.arange(Lcap, device=dev).repeat_interleave(Bcap)
+            ri = torch.arange(Bcap, device=dev).repeat(Lcap)
+            li, ri = li.expand(S, -1), ri.expand(S, -1)
+            cols = {cid: a.gather(1, li) for cid, a in lb.cols.items()}
+            cols.update({cid: a.gather(1, ri) for cid, a in rb.cols.items()})
+            valids = {cid: v.gather(1, li) for cid, v in lb.valids.items()}
+            valids.update({cid: v.gather(1, ri)
+                           for cid, v in rb.valids.items()})
+            sel = lb.selection().gather(1, li) & rb.selection().gather(1, ri)
+            return Batch(cols, valids, sel)
+
+        return run
+
+    def _join_multi_expand_cap(self, plan: Join) -> int:
+        """Semi/anti multi-join pair-EXPANSION capacity: the output is
+        probe-shaped (_capacity_of), but the matched-pair expansion needs
+        its own slot count — the exact-total retry hint, else the
+        planner's stats-driven pair estimate (|L||R|/NDV), else a blind
+        multiple of the probe capacity."""
+        probe_cap0 = self._capacity_of(plan.left)
+        if self._nid(plan) in self.cap_overrides:
+            out_cap = _pow2(max(int(self.cap_overrides[self._nid(plan)]), 64))
+        else:
+            est = getattr(plan, "expand_est", None)
+            if est:
+                if plan.locus is not None and plan.locus.is_partitioned \
+                        and self.nseg > 1:
+                    est /= self.nseg
+                out_cap = _pow2(int(est * 1.5) + 64)
+            else:
+                out_cap = _pow2(probe_cap0 * 2 + 64)
+        return int(out_cap * (4 ** self.tier))
+
+    def _c_join_multi(self, plan: Join):
+        """Duplicate-capable join via CSR expansion: inner/left emit the
+        matched pairs; semi/anti reduce the pairs back to PROBE rows with
+        an any-match scatter — the shape EXISTS correlation with residual
+        predicates needs (a probe row qualifies iff ANY duplicate build
+        row passes equality AND the residual)."""
+        left_fn = self._compile_node(plan.left)
+        right_fn = self._compile_node(plan.right)
+        build_cap = self._capacity_of(plan.right)
+        M = self._join_table_size(build_cap)
+        if plan.kind in ("semi", "anti"):
+            out_cap = self._join_multi_expand_cap(plan)
+        else:
+            out_cap = self._capacity_of(plan)
+        probes = self._join_probes()
+        lkeys, rkeys = plan.left_keys, plan.right_keys
+        kind = plan.kind
+        residual = plan.residual
+        fid_ov = f"join_overflow_{len(self.flags)}"
+        self.flags.append(fid_ov)
+        fid_exp = f"join_expand_overflow_{len(self.flags)}"
+        self.flags.append(fid_exp)
+        mid_total = f"join_expand_total_{len(self.metrics)}"
+        self.metrics.append(mid_total)
+        # an overflow retry sizes itself from the exact reported cardinality
+        self.flag_caps[fid_exp] = (self._nid(plan), mid_total)
+        left_cols = plan.left.out_cols()
+        right_cols = plan.right.out_cols()
+        jkb, fid_pack = self._pack_flag(
+            plan, getattr(plan, "key_bounds", None), join_ops.join_pack_bits)
+
+        def pairs(lb, rb, prow, brow, matched):
+            """Columns of the expanded pairs: probe side at prow, build side
+            at brow (NULL where unmatched)."""
+            cols, valids = {}, {}
+            for c in left_cols:
+                cols[c.id] = lb.cols[c.id].gather(1, prow)
+                v = lb.valids.get(c.id)
+                if v is not None:
+                    valids[c.id] = v.gather(1, prow)
+            g_cols, g_valids = join_ops.gather_build_columns(
+                {c.id: rb.cols[c.id] for c in right_cols},
+                {c.id: rb.valids.get(c.id) for c in right_cols},
+                brow, matched)
+            cols.update(g_cols)
+            valids.update(g_valids)
+            return cols, valids
+
+        def any_per_probe(prow, keep, P):
+            """bool [nseg, P]: whether any kept pair came from each probe
+            row. Each kept pair stores True at its probe row and the rest
+            go to the spare slot P: plain stores, which give the slots the
+            JAX package's scatter-max of the 0/1 flags gives."""
+            S = prow.shape[0]
+            out = torch.zeros((S, P + 1), dtype=torch.bool,
+                              device=prow.device)
+            return out.scatter_(1, torch.where(keep, prow, P), True)[:, :P]
+
+        def run(ctx):
+            lb = left_fn(ctx)
+            rb = right_fn(ctx)
+            table = join_ops.build_multi(
+                self._value_specs(rb, rkeys), rb.selection(), M, probes,
+                jkb)
+            (present, prow, brow, matched, expand_ov, walk_ov,
+             total) = join_ops.probe_multi(
+                table, self._value_specs(lb, lkeys), lb.selection(),
+                probes, out_cap, left_outer=(kind == "left"))
+            if fid_pack is not None:
+                ctx["flags"].append((fid_pack, table.pack_viol))
+            # walk overflow rides the table flag (the tier retry grows the
+            # table and the hop bound); expand overflow rides its own flag,
+            # whose retry hint sizes out_cap from `total`
+            ctx["flags"].append((fid_ov, walk_ov))
+            ctx["flags"].append((fid_exp, expand_ov))
+            ctx["metrics"].append((mid_total, total))
+            lsel = lb.selection()
+            P = lsel.shape[1]
+            if kind in ("semi", "anti"):
+                # evaluate the residual on the PAIR batch, then reduce to
+                # per-probe-row existence
+                keep = present & matched
+                if residual is not None:
+                    pcols, pvalids = pairs(lb, rb, prow, brow, matched)
+                    keep = keep & Evaluator(Batch(pcols, pvalids, keep),
+                                            self.consts).predicate(residual)
+                any_kept = any_per_probe(prow, keep, P)
+                sel2 = lsel & any_kept if kind == "semi" \
+                    else lsel & ~any_kept
+                return Batch(dict(lb.cols), dict(lb.valids), sel2)
+            cols, valids = pairs(lb, rb, prow, brow, matched)
+            sel = present if kind == "left" else (present & matched)
+            out = Batch(cols, valids, sel)
+            if residual is not None:
+                mask = Evaluator(out, self.consts).predicate(residual)
+                if kind == "left":
+                    # per-match disqualification over duplicate builds
+                    # (TPC-H Q13 shape): a pair failing the residual drops
+                    # its output row — UNLESS the probe row then has no
+                    # surviving pair, in which case its FIRST expanded row
+                    # becomes the single null-extended row
+                    keep = matched & mask
+                    any_kept = any_per_probe(prow, present & keep, P)
+                    first = torch.ones_like(present)
+                    first[:, 1:] = prow[:, 1:] != prow[:, :-1]
+                    null_row = present & first & ~any_kept.gather(1, prow)
+                    out = out.with_sel(present & (keep | null_row))
+                    for c in right_cols:
+                        out.valids[c.id] = out.valids[c.id] & keep
+                else:
+                    out = out.with_sel(out.selection() & mask)
+            return out
+
+        return run
+
     # ---- aggregation ---------------------------------------------------
     def _c_aggregate(self, plan: Aggregate):
         child_fn = self._compile_node(plan.child)
         keys = plan.group_keys
-        # dense grouping over known finite key domains, or the scalar
-        # aggregate (no keys: one slot per segment)
-        dense = self._dense_domains(plan) if keys else None
+        # dense grouping over known finite key domains, the sort-based path
+        # for every other GROUP BY, or the scalar aggregate (no keys: one
+        # slot per segment)
+        dense = self._dense_domains(plan)
+        use_sort = bool(keys) and dense is None
         M = 1
         for dom in dense or ():
             M *= dom
         aggs = plan.aggs
         phase = plan.phase
+        out_cap = self._capacity_of(plan) if use_sort else None
+        fid = mid = None
+        if use_sort and out_cap < self._capacity_of(plan.child):
+            # output capacity below the theoretical max: the group count
+            # can overflow it; the device reports the exact count for the
+            # retry
+            fid = f"agg_overflow_{len(self.flags)}"
+            self.flags.append(fid)
+            mid = f"agg_groups_{len(self.metrics)}"
+            self.metrics.append(mid)
+            self.flag_caps[fid] = (self._nid(plan), mid)
+        # packed single-operand group sort from ANALYZE key bounds
+        key_bounds, fid_pack = self._pack_flag(
+            plan, getattr(plan, "key_bounds", None),
+            agg_ops.pack_bits) if use_sort else (None, None)
 
         # the fused single-pass kernel, gated as in the JAX package so both
         # packages take it on the same plans: big enough batches, a small
@@ -451,8 +807,16 @@ class Compiler:
             sel = b.selection()
             S = sel.shape[0]
             cols, valids = {}, {}
-            gid = None
-            if keys:
+            gid = perm = None
+            if use_sort:
+                # sort by keys, cumsum-span reduce into the group table;
+                # slot g's keys gather from its first row
+                kspecs = self._value_specs(b, [e for _, e in keys])
+                perm, boundary, sel_sorted, pack_viol = agg_ops.group_sort(
+                    kspecs, sel, key_bounds)
+                if fid_pack is not None:
+                    ctx["flags"].append((fid_pack, pack_viol))
+            elif keys:
                 kspecs = self._key_specs(b, [e for _, e in keys])
                 gid, _ = agg_ops.dense_gid(kspecs, dense, sel)
                 for (ci, _), (code, valid) in zip(
@@ -463,6 +827,17 @@ class Compiler:
             meta = {}
 
             def do_agg(specs):
+                if perm is not None:
+                    ps = [agg_ops.AggSpec(
+                        sp.name, sp.func,
+                        None if sp.values is None
+                        else sp.values.gather(1, perm),
+                        None if sp.valid is None else sp.valid.gather(1, perm),
+                        sp.decimal_scale) for sp in specs]
+                    vals, avalids, meta["srcpos"], meta["total"] = \
+                        agg_ops.sorted_group_aggregate(
+                            boundary, sel_sorted, ps, out_cap)
+                    return vals, avalids
                 if gid is None:
                     # scalar aggregate: every segment emits its one row,
                     # live even when the segment had no rows (a partial
@@ -553,6 +928,21 @@ class Compiler:
                         cols[ci.id] = vals[ci.id]
                         if avalids.get(ci.id) is not None:
                             valids[ci.id] = avalids[ci.id]
+            if perm is not None:
+                # group g's key values gather from its first sorted row
+                rep = perm.gather(1, meta["srcpos"])
+                for (ci, _), sp in zip(keys, kspecs):
+                    cols[ci.id] = sp.values.gather(1, rep)
+                    if sp.valid is not None:
+                        valids[ci.id] = sp.valid.gather(1, rep)
+                total = meta["total"]
+                meta["used"] = torch.arange(out_cap, device=sel.device) \
+                    < total[:, None]
+                if fid is not None:
+                    # the overflow reports the exact group count so the
+                    # retry sizes itself right
+                    ctx["flags"].append((fid, (total > out_cap).any()))
+                    ctx["metrics"].append((mid, total))
             return Batch(cols, valids, meta["used"])
 
         return run

@@ -9,10 +9,11 @@ greengage_tpu/exec/executor.py.
             cache keyed by (table, column, capacity, store version), so a
             warm statement sends nothing over PCIe
   tiers     compile at tier 0 and run; the overflow flags (motion buckets,
-            the pre-Gather compaction) come back in ONE host copy with the
+            join tables and expansions, group tables, key packing, the
+            pre-Gather compaction) come back in ONE host copy with the
             Gather's live count and the metrics; an overflow re-runs at the
-            next tier (capacities x4) or, for the compaction, at its exact
-            reported size, up to ``motion_retry_tiers``
+            next tier (capacities x4), at its exact reported size, or
+            unpacked, up to ``motion_retry_tiers``
   gather    the Gather Motion on the device: every segment's live rows (one
             segment's for a replicated child), compacted, merge-ordered
             when the plan asks, and a Limit's OFFSET/LIMIT trimmed
@@ -42,7 +43,8 @@ from greengage_tpu_torch.planner.logical import Plan, Scan
 
 
 class QueryError(RuntimeError):
-    """A statement the executor cannot finish (capacity tiers exhausted)."""
+    """A statement the executor cannot finish (capacity tiers exhausted,
+    duplicate keys on a unique join's build side)."""
 
 
 @dataclass
@@ -193,19 +195,29 @@ def present(comp: CompileResult, rows: dict, flags: dict, metrics: dict,
 
 
 def run_tiers(plan, tables: dict[str, TableData], layout, settings,
-              consts: dict | None = None, dictionary=None) -> Result:
-    """Compile ``plan`` over staged ``tables`` and run it, retrying at a
-    larger capacity tier on overflow (the JAX executor's _run_tiers)."""
+              consts: dict | None = None, dictionary=None,
+              no_direct: bool = False) -> Result:
+    """Compile ``plan`` over staged ``tables`` and run it, retrying on
+    overflow as the JAX executor's _run_tiers does: a capacity overflow
+    re-runs at the next tier (capacities x4), sized from the exact count
+    where the device reported one; a key-packing bounds violation re-runs
+    the same tier with that node unpacked; duplicate keys on a unique
+    join's build side raise QueryError (the session re-plans with the
+    multi-match join). ``no_direct`` builds every join's hash table."""
     t0 = time.perf_counter()
     tier = 0
     attempts = 0
     cap_overrides: dict = {}
+    pack_disabled: set = set()
     last_err = None
+    # tiers grow capacities; a packing violation re-runs the SAME tier, so
+    # the attempt bound covers both kinds of retry
     while tier < settings.motion_retry_tiers \
             and attempts < settings.motion_retry_tiers + 4:
         attempts += 1
         compiler = Compiler(layout, tables, settings, consts, dictionary,
-                            tier=tier, cap_overrides=cap_overrides)
+                            tier=tier, cap_overrides=cap_overrides,
+                            pack_disabled=pack_disabled, no_direct=no_direct)
         comp = compiler.compile(plan)
         out = comp.program(tables)
         _, _, sel = _gather_rows(comp, out)
@@ -218,6 +230,10 @@ def run_tiers(plan, tables: dict[str, TableData], layout, settings,
             k = out.metrics[n].numel()
             metrics[n] = host[i:i + k]
             i += k
+        if any(v for n, v in flags.items() if n.startswith("join_dup")):
+            raise QueryError(
+                "hash join build side has duplicate keys; only unique-key "
+                "(PK-FK) hash joins are supported in this version")
         overflow = [n for n, v in flags.items() if v]
         if not overflow:
             res = present(comp, gather(comp, out, compiler, live), flags,
@@ -231,15 +247,22 @@ def run_tiers(plan, tables: dict[str, TableData], layout, settings,
                                      else int(v.max())
                                      for k, v in metrics.items()}}
             return res
-        # an overflowed compaction re-runs the SAME tier at its exact
-        # reported size; any other overflow grows every capacity 4x
+        # a packing violation re-runs the SAME tier with that node
+        # unpacked; an overflow that reports its exact need sizes the retry
+        # from it; an overflowed compaction re-runs the SAME tier, and any
+        # other capacity overflow grows every capacity 4x
+        capacity_over = []
         for name in overflow:
+            if name.startswith("pack_overflow"):
+                pack_disabled.add(comp.flag_packs[name])
+                continue
+            capacity_over.append(name)
             hint = comp.flag_caps.get(name)
             if hint is not None:
                 nid, metric = hint
                 need = int(metrics[metric].max())
                 cap_overrides[nid] = need + max(need // 16, 64)
-        if [n for n in overflow
+        if [n for n in capacity_over
                 if not n.startswith("gather_compact_overflow")]:
             tier += 1
         last_err = f"capacity overflow in {overflow} at tier {tier}"
@@ -274,13 +297,14 @@ class Executor:
         for k in [k for k in self._stage_cache if k[0] == table]:
             del self._stage_cache[k]
 
-    def run(self, plan, consts: dict) -> Result:
+    def run(self, plan, consts: dict, no_direct: bool = False) -> Result:
         t0 = time.perf_counter()
         snapshot = self.store.manifest.snapshot()
         tables = self._stage(plan, snapshot)
         t1 = time.perf_counter()
         res = run_tiers(plan, tables, self.layout, self.settings, consts,
-                        lambda ref: self.store.dictionary(*ref).values)
+                        lambda ref: self.store.dictionary(*ref).values,
+                        no_direct=no_direct)
         res.wall_ms = (time.perf_counter() - t0) * 1e3
         res.stats["stage_ms"] = (t1 - t0) * 1e3
         res.stats["wall_ms"] = res.wall_ms

@@ -8,8 +8,8 @@ layout on the device and the executor; ``sql()`` is exec_simple_query:
 each statement through the same steps as the JAX session's ``_sql_inner``
 -> ``_execute`` -> ``_plan`` -> ``_select``.
 
-The statements handled: SELECT (and UNION ALL, which raises at compile
-time until its node is ported), CREATE TABLE (DISTRIBUTED BY / RANDOMLY /
+The statements handled: SELECT (joins and subqueries included; UNION ALL
+raises at compile time until its node is ported), CREATE TABLE (DISTRIBUTED BY / RANDOMLY /
 REPLICATED), DROP TABLE, ANALYZE [table], SET and SHOW of the settings the
 port holds, and ``load_table`` for bulk loads. Every other statement
 raises a SqlError naming the ROADMAP item it waits for; a plan node the
@@ -28,7 +28,8 @@ from greengage_tpu_torch import types as T
 from greengage_tpu_torch.catalog import (Catalog, Column, DistPolicy,
                                          PolicyKind, TableSchema)
 from greengage_tpu_torch.config import Settings
-from greengage_tpu_torch.exec.executor import Executor, Result
+from greengage_tpu_torch.exec.executor import (Executor, QueryError,
+                                               Result)
 from greengage_tpu_torch.parallel.mesh import make_layout
 from greengage_tpu_torch.planner import cost as _cost
 from greengage_tpu_torch.planner import plan_query
@@ -86,6 +87,9 @@ class Database:
         self.layout = make_layout(numsegments, self.device)
         self.executor = Executor(self.catalog, self.store, self.layout,
                                  self.settings)
+        # statements (by their parse tree) whose unique-key join plan met
+        # duplicate build keys at run time: they plan multi-match joins
+        self._multi_join: set[str] = set()
 
     def _motion_overlap_factor(self) -> float:
         """Redistribute overlap credit from motion_pipeline_buckets
@@ -183,14 +187,18 @@ class Database:
         return self.store.insert(table, columns, valids)
 
     # ------------------------------------------------------------------
-    def _plan(self, stmt):
+    def _plan(self, stmt, force_multi_join: bool = False):
         """-> (planned tree, binder consts, output columns): bind, then
-        parallelize (Motion insertion, loci, estimates)."""
+        parallelize (Motion insertion, loci, estimates). IN, EXISTS and NOT
+        IN subqueries arrive from the binder as semi, anti and null-aware
+        anti joins. ``force_multi_join`` plans every equi-join with the
+        multi-match (duplicate-capable) join."""
         binder = Binder(self.catalog, self.store,
                         subquery_executor=self._scalar_subquery)
         logical, outs = binder.bind_select(stmt)
         planned = plan_query(logical, self.catalog, self.store,
-                             self.numsegments)
+                             self.numsegments,
+                             force_multi_join=force_multi_join)
         return planned, binder.consts, outs
 
     def _select(self, stmt) -> Result:
@@ -201,10 +209,25 @@ class Database:
             raise SqlError("SELECT without FROM (a constant relation) is not "
                            "ported yet (ROADMAP Queue 1 item 4)")
         t0 = time.perf_counter()
-        planned, consts, _outs = self._plan(stmt)
+        key = repr(stmt)
+        multi = key in self._multi_join
+        planned, consts, _outs = self._plan(stmt, force_multi_join=multi)
         plan_ms = (time.perf_counter() - t0) * 1e3
-        res = self.executor.run(planned, consts)
-        res.stats["plan_ms"] = plan_ms
+        replanned = False
+        try:
+            res = self.executor.run(planned, consts)
+        except QueryError as e:
+            if multi or "duplicate keys" not in str(e):
+                raise
+            # the uniqueness heuristic was wrong at run time: re-plan with
+            # the multi-match join everywhere, as the JAX session does, and
+            # remember it so a repeat skips the failing plan (the JAX
+            # session keeps the re-plan in its plan cache)
+            self._multi_join.add(key)
+            planned, consts, _outs = self._plan(stmt, force_multi_join=True)
+            res = self.executor.run(planned, consts)
+            replanned = True
+        res.stats.update(plan_ms=plan_ms, multi_join_replan=replanned)
         return res
 
     def _scalar_subquery(self, stmt):

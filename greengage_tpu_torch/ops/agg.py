@@ -1,12 +1,14 @@
-"""Grouped aggregation, dense path — the port's counterpart of the dense
-half of greengage_tpu/ops/agg.py (the execHHashagg.c analog).
+"""Grouped aggregation — the port's counterpart of greengage_tpu/ops/agg.py
+(the execHHashagg.c analog).
 
 DENSE: every group key has a known finite domain (TEXT dictionary / BOOL);
 gid is a mixed-radix index and every aggregate reduces per (segment, group).
-Tensors carry the segment axis first: gid and values are ``[nseg, n]``,
-per-group results ``[nseg, D]``. ``scalar_aggregate`` is the same
-semantics with one group per segment (no GROUP BY), as row reductions. The
-sort-based high-cardinality path arrives with ROADMAP Queue 1 item 2.
+SORT: unbounded cardinality; rows sort by key within their segment and each
+run of equal keys reduces with cumsum span differences (a scatter for
+float64 sums and min/max). Tensors carry the segment axis first: gid and
+values are ``[nseg, n]``, per-group results ``[nseg, D]``.
+``scalar_aggregate`` is the same semantics with one group per segment (no
+GROUP BY), as row reductions.
 """
 
 from __future__ import annotations
@@ -16,7 +18,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from greengage_tpu_torch import types as T
 from greengage_tpu_torch.ops.expr_eval import descale
+from greengage_tpu_torch.ops.sort import BIT63, _lexsort, cumsum_rows
+
+BIG = 2 ** 31 - 1   # int32 max: the hop pointer past the last run (ops/join)
 
 
 @dataclass
@@ -240,3 +246,214 @@ def scalar_aggregate(aggs: list[AggSpec], sel):
     row reductions over the live rows, no group ids -> [nseg, 1] per
     aggregate."""
     return _run_aggs(aggs, sel, lambda job: reduce_job(None, 1, job))
+
+
+# ---------------------------------------------------------------------------
+# Sort-based grouping: the high-cardinality path.
+#
+# Past the dense-domain regime rows sort by their group keys within each
+# segment and every run of equal keys reduces with segmented cumsum-diffs —
+# cardinality bounded only by the batch itself (a GROUP BY never produces
+# more groups than input rows); only the output capacity chosen for the
+# batch above can overflow, which retries through the executor's exact-count
+# tier mechanism.
+#
+# torch sorts no uint64, so every unsigned operand of the JAX package's
+# lax.sort is carried as its signed image (bit 63 flipped), whose int64
+# order is the uint64 order; the multi-operand sort is ops/sort's chained
+# stable sorts, which with the row index as the last operand gives the same
+# permutation.
+# ---------------------------------------------------------------------------
+
+
+def _group_encode(k: KeySpec) -> list:
+    """Equality-preserving 64-bit encoding (+ a null operand when nullable),
+    as the signed image of the JAX package's uint64. Grouping needs
+    equal-keys-adjacent, not collation order, so TEXT groups by dictionary
+    code and float64 only canonicalizes -0.0/NaN."""
+    v = k.values
+    if k.type.kind is T.Kind.FLOAT64:
+        v = v.to(torch.float64)
+        v = torch.where(v == 0.0, torch.zeros_like(v), v)
+        v = torch.where(torch.isnan(v), torch.full_like(v, float("nan")), v)
+        enc = v.view(torch.int64) ^ BIT63
+    else:
+        enc = v.to(torch.int64) ^ BIT63
+    ops = []
+    if k.valid is not None:
+        ops.append(k.valid.to(torch.uint8))
+        # a NULL row's value operand is uint64 0, whose signed image is BIT63
+        enc = torch.where(k.valid, enc, torch.full_like(enc, BIT63))
+    ops.append(enc)
+    return ops
+
+
+def pack_bits(bounds: list) -> int | None:
+    """Total packed bits for per-key integer bounds [(lo, hi) | None].
+    Each key takes ceil(log2(hi - lo + 2)) bits (the +2 reserves field
+    value 0 for NULL) plus nothing else. None when any key is unbounded
+    or the fields exceed 63 bits (bit 63 carries the dead-row flag)."""
+    if not bounds or any(b is None for b in bounds):
+        return None
+    total = 0
+    for lo, hi in bounds:
+        span = int(hi) - int(lo) + 2
+        if span <= 1:
+            span = 2
+        total += max(span - 1, 1).bit_length()
+        if total > 63:
+            return None
+    return total
+
+
+def pack_keys(keys: list[KeySpec], bounds: list, sel):
+    """Pack stats-bounded integer keys into ONE 64-bit word per row (dead
+    flag in bit 63, then per-key fields, NULL = field value 0).
+
+    -> (signed image of the uint64 word [nseg, n], violation bool scalar).
+    ``violation`` fires when any LIVE, non-NULL value falls outside its
+    advertised bound — packing would alias distinct keys, so the caller
+    must re-run unpacked (stale ANALYZE stats). Equal words <=> equal key
+    tuples (including NULL positions) whenever violation is False."""
+    word = torch.zeros(sel.shape, dtype=torch.int64, device=sel.device)
+    violation = torch.zeros((), dtype=torch.bool, device=sel.device)
+    for k, (lo, hi) in zip(keys, bounds):
+        span = max(int(hi) - int(lo) + 2, 2)
+        width = max(span - 1, 1).bit_length()
+        v = k.values.to(torch.int64)
+        in_b = (v >= lo) & (v <= hi)
+        live = sel if k.valid is None else (sel & k.valid)
+        violation = violation | (live & ~in_b).any()
+        field = torch.where(in_b, v - int(lo) + 1, torch.zeros_like(v))
+        if k.valid is not None:
+            field = torch.where(k.valid, field, torch.zeros_like(field))
+        word = (word << width) | field
+    word = torch.where(sel, word, word | BIT63)
+    return word ^ BIT63, violation
+
+
+def _run_starts(sorted_ops: list, n: int):
+    """bool [nseg, n]: the first row of every run of equal operands."""
+    first = sorted_ops[0].new_ones(sorted_ops[0].shape[0], n, dtype=torch.bool)
+    if n > 1:
+        neq = None
+        for s in sorted_ops:
+            d = s[:, 1:] != s[:, :-1]
+            neq = d if neq is None else neq | d
+        first[:, 1:] = neq
+    return first
+
+
+def group_sort(keys: list[KeySpec], sel, bounds: list | None = None):
+    """Sort each segment's rows by group keys, dead rows last.
+
+    -> (perm int64[nseg, n], boundary bool[nseg, n], sel_sorted
+    bool[nseg, n], violation): perm is the gather permutation (sorted_col =
+    col.gather(1, perm)); boundary marks the first (live) row of each
+    equal-key run — the group's representative row. ``bounds`` (per-key
+    (lo, hi) from ANALYZE) enables the packed single-operand sort;
+    violation is a bool scalar the caller must route to an overflow flag
+    (None when packing was not attempted)."""
+    n = sel.shape[-1]
+    if bounds is not None and pack_bits(bounds) is not None:
+        word, violation = pack_keys(keys, bounds, sel)
+        perm = _lexsort([word], n)
+        wkey = word.gather(1, perm)
+        # the dead flag is bit 63 of the uint64 word: a non-negative image
+        sel_sorted = wkey < 0
+        return perm, sel_sorted & _run_starts([wkey], n), sel_sorted, \
+            violation
+
+    dead = (~sel).to(torch.uint8)
+    key_ops = []
+    for k in keys:
+        key_ops.extend(_group_encode(k))
+    perm = _lexsort([dead] + key_ops, n)
+    sel_sorted = dead.gather(1, perm) == 0
+    if key_ops:
+        first = _run_starts([op.gather(1, perm) for op in key_ops], n)
+    else:
+        first = torch.zeros_like(sel_sorted)
+        first[:, :1] = True
+    return perm, sel_sorted & first, sel_sorted, None
+
+
+def sorted_group_aggregate(boundary, sel_sorted, aggs: list[AggSpec],
+                           out_cap: int):
+    """Table-shaped aggregation over key-sorted rows, per segment.
+
+    -> (vals {name: [nseg, out_cap]}, valids, srcpos int64[nseg, out_cap],
+    total int64[nseg]) where group g's values live at slot g (groups
+    numbered in key-sort order) and srcpos[:, g] is the SORTED-row index of
+    g's first row (gather keys there). Groups beyond out_cap are dropped —
+    the caller flags total > out_cap and retries with the exact count.
+
+    Sums and counts are a whole-row cumsum and a span difference at the
+    group boundaries; int64 (scaled DECIMAL) sums split into 32-bit limbs
+    with separate cumsums, so the span difference is exact whatever the
+    batch magnitude. float64 sums and min/max scatter into the group-id
+    table (floats cannot limb-split: a span of two near-equal prefixes
+    would lose the small group's precision). All spec tensors must already
+    be key-sorted."""
+    S, n = sel_sorted.shape
+    dev = sel_sorted.device
+    csb = cumsum_rows(boundary.to(torch.int64))
+    total = csb[:, -1] if n else torch.zeros(S, dtype=torch.int64, device=dev)
+    # first sorted row of group g; RAW positions keep n for absent groups
+    # so the span ends don't truncate the last real group off by one. The
+    # JAX package's static choice between its two forms, from its measured
+    # costs: a scatter once out_cap is a sizable fraction of the batch,
+    # else a binary search per slot. Every real slot has exactly one
+    # boundary row, so a plain store gives the scatter-min's slots
+    if out_cap * 26 * 10.7 > n * 90:
+        stgt = torch.where(boundary, torch.clamp(csb - 1, max=out_cap),
+                           out_cap)
+        rows = torch.arange(n, device=dev).expand(S, n)
+        raw = torch.full((S, out_cap + 1), n, dtype=torch.int64, device=dev)
+        raw = raw.scatter_(1, stgt, rows)[:, :out_cap]
+    else:
+        want = torch.arange(1, out_cap + 1, device=dev).expand(S, out_cap)
+        raw = torch.searchsorted(csb, want.contiguous())
+    last = max(n - 1, 0)
+    ends = torch.cat([raw[:, 1:], torch.full((S, 1), n, dtype=torch.int64,
+                                             device=dev)], dim=1)
+    ends = torch.clamp(ends - 1, 0, last)
+    srcpos = torch.clamp(raw, 0, last)
+    # per-row group slot (dead rows get the last group's id but every
+    # reducer masks them to the identity)
+    gid = csb - 1
+    tgt = torch.where((gid >= 0) & (gid < out_cap), gid, out_cap)
+    before = torch.clamp(srcpos - 1, 0, last)
+
+    def span(cs):
+        base = torch.where(srcpos > 0, cs.gather(1, before),
+                           torch.zeros((), dtype=cs.dtype, device=dev))
+        return cs.gather(1, ends) - base
+
+    def reduce(job: Job):
+        if job.values is None:
+            masked = job.live.to(torch.int64)
+        elif job.op == "sum":
+            zero = torch.zeros((), dtype=job.dtype, device=dev)
+            masked = torch.where(job.live, job.values.to(job.dtype), zero)
+        else:
+            ident = job.ident.item() if hasattr(job.ident, "item") \
+                else job.ident
+            fill = torch.tensor(ident, dtype=job.values.dtype, device=dev)
+            filled = torch.where(job.live, job.values, fill)
+            tbl = torch.full((S, out_cap + 1), ident, dtype=filled.dtype,
+                             device=dev)
+            red = "amin" if job.op == "min" else "amax"
+            return tbl.scatter_reduce_(1, tgt, filled, red)[:, :out_cap]
+        if masked.dtype == torch.int64:
+            lo = masked & 0xFFFFFFFF           # [0, 2^32)
+            hi = masked >> 32                  # arithmetic shift
+            return (span(cumsum_rows(hi)) << 32) + span(cumsum_rows(lo))
+        if masked.dtype == torch.float64:
+            tbl = torch.zeros((S, out_cap + 1), dtype=torch.float64,
+                              device=dev)
+            return tbl.scatter_add_(1, tgt, masked)[:, :out_cap]
+        return span(cumsum_rows(masked))
+
+    vals, valids = _run_aggs(aggs, sel_sorted, reduce)
+    return vals, valids, srcpos, total

@@ -141,6 +141,39 @@ def pack_order_keys(keys: list[SortKey], bounds: list, sel):
     return word ^ BIT63, violation
 
 
+def cumsum_rows(x):
+    """torch.cumsum(x, dim=1) of an integer [S, n] tensor, as one scan of
+    the flattened tensor less each row's carry-in: torch scans a long last
+    axis of few rows with one thread block per row, which leaves the card
+    idle (10 ms for 8 x 7.5M int64 on an H100), while a flat scan runs at
+    memory speed. Integer sums wrap modulo 2^64, so the difference is
+    exact."""
+    S, n = x.shape
+    flat = x.reshape(-1).cumsum(0).reshape(S, n)
+    if S > 1 and n:
+        ends = flat[:, -1:]
+        flat = flat - torch.cat([torch.zeros_like(ends[:1]), ends[:-1]])
+    return flat
+
+
+def suffix_min_rows(x, fill: int, block: int = 1024):
+    """out[:, i] = min(x[:, i:]) of an integer [S, n] tensor (a reverse
+    cummin along the last axis), in two levels for the reason
+    cumsum_rows gives: within blocks of ``block`` elements, every block of
+    every row at once, then across each row's block minima. ``fill`` is at
+    least every value of x (it pads the last block)."""
+    S, n = x.shape
+    nb = max(-(-n // block), 1)
+    xp = torch.full((S, nb * block), fill, dtype=x.dtype, device=x.device)
+    xp[:, :n] = x
+    inner = xp.reshape(S * nb, block).flip(1).cummin(1).values.flip(1)
+    inner = inner.reshape(S, nb, block)
+    carry = inner[:, :, 0].flip(1).cummin(1).values.flip(1)
+    after = torch.cat([carry[:, 1:], torch.full_like(carry[:, :1], fill)],
+                      dim=1)
+    return torch.minimum(inner, after[:, :, None]).reshape(S, -1)[:, :n]
+
+
 def _lexsort(operands, n: int):
     """Stable lexicographic argsort of [nseg, n] operands along the last
     axis (first operand most significant) — chained stable sorts from the
@@ -203,7 +236,7 @@ def compact(cols: dict, valids: dict, sel, k: int):
     (callers pair this with an overflow flag on count > k).
     """
     S, n = sel.shape
-    cs = torch.cumsum(sel.to(torch.int32), dim=-1)
+    cs = cumsum_rows(sel.to(torch.int32))
     total = cs[:, -1:] if n else torch.zeros((S, 1), dtype=torch.int32,
                                              device=sel.device)
     want = torch.arange(1, k + 1, dtype=torch.int32, device=sel.device)

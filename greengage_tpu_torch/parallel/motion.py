@@ -21,32 +21,37 @@ def _bucketize(arrs: dict, present, dest, nseg: int, capacity: int):
     ``[S, nseg * capacity]``.
 
     Rows are ranked within their destination via a stable sort by dest;
-    bucket index = dest * capacity + rank. Returns (buckets dict,
-    present_buckets, overflow flag of each source segment [S]).
+    bucket slot dest * capacity + rank holds the row of that rank, and
+    ranks past the capacity drop (the overflow flag reports them). Returns
+    (buckets dict, present_buckets, overflow flag of each source segment
+    [S]).
+
+    Each bucket slot gathers its row from the sorted order: each
+    destination's first sorted position comes from a binary search, so no
+    scatter runs. (Scattering the rows instead sends every dead row to one
+    sink slot, and a scatter-add of per-destination counters puts every
+    row on nseg + 1 addresses: both serialise on the card.)
     """
     S, n = present.shape
     dev = present.device
     dest = torch.where(present, dest.to(torch.int64), nseg)  # dead -> sink
-    counts = torch.zeros((S, nseg + 1), dtype=torch.int64, device=dev)
-    counts.scatter_add_(1, dest, torch.ones_like(dest))
-    overflow = (counts[:, :nseg] > capacity).any(dim=1)
-    start = torch.cumsum(counts, dim=1) - counts
     order = torch.argsort(dest, dim=1, stable=True)
     dsorted = dest.gather(1, order)
-    rank = torch.arange(n, device=dev) - start.gather(1, dsorted)
-    # clamp ranks so skewed rows drop instead of corrupting other buckets:
-    # every dropped row lands on the one sink slot past the buckets, which
-    # is sliced off — the only position written more than once
+    dests = torch.arange(nseg + 1, device=dev).expand(S, nseg + 1)
+    start = torch.searchsorted(dsorted, dests.contiguous())
+    counts = start[:, 1:] - start[:, :-1]
+    overflow = (counts > capacity).any(dim=1)
     size = nseg * capacity
-    pos = torch.where((dsorted < nseg) & (rank < capacity),
-                      dsorted * capacity + rank, size)
+    slot = torch.arange(size, device=dev)
+    bucket, rank = slot // capacity, slot % capacity
+    live = rank < counts[:, bucket]
+    src = order.gather(1, torch.clamp(start[:, bucket] + rank,
+                                      max=max(n - 1, 0)))
     out = {}
     for name, a in arrs.items():
-        buf = torch.zeros((S, size + 1), dtype=a.dtype, device=dev)
-        out[name] = buf.scatter_(1, pos, a.gather(1, order))[:, :size]
-    pbuf = torch.zeros((S, size + 1), dtype=torch.bool, device=dev)
-    pbuf = pbuf.scatter_(1, pos, dsorted < nseg)[:, :size]
-    return out, pbuf, overflow
+        out[name] = torch.where(live, a.gather(1, src),
+                                torch.zeros((), dtype=a.dtype, device=dev))
+    return out, live, overflow
 
 
 def _exchange(a, capacity: int, nbuckets: int):

@@ -126,3 +126,21 @@ def test_compact_matches_jax(k):
                               np.asarray(jc["i"])[live])
         assert np.array_equal(ov["i"][s].numpy()[live],
                               np.asarray(jv["i"])[live])
+
+
+@pytest.mark.parametrize("shape", [(1, 5), (3, 1000), (8, 3001), (2, 2048),
+                                   (4, 0)])
+def test_row_scans_equal_torch(shape):
+    """cumsum_rows and suffix_min_rows (the flat and two-level scans the
+    port takes on the card) equal torch's own scans along the last axis,
+    int64 wrap-around included."""
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randint(-2 ** 62, 2 ** 62, shape, generator=g)
+    assert torch.equal(tsort.cumsum_rows(x), torch.cumsum(x, dim=1))
+    b = torch.randint(0, 2, shape, generator=g, dtype=torch.int32)
+    assert torch.equal(tsort.cumsum_rows(b), torch.cumsum(b, dim=1))
+    big = 2 ** 31 - 1
+    h = torch.where(b > 0, torch.arange(shape[1]).expand(shape), big)
+    want = h.flip(1).cummin(1).values.flip(1) if shape[1] else h
+    for block in (1024, 7):
+        assert torch.equal(tsort.suffix_min_rows(h, big, block), want)

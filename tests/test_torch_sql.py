@@ -1,8 +1,10 @@
 """The port's SQL front end and Database (greengage_tpu_torch.connect)
 against the JAX package's on the same TPC-H data (SF 0.002, both analyzed):
 equal ASTs, equal ANALYZE statistics, equal plans and binder constants for
-the TPC-H plan corpus, and equal rows for Q1, Q6 and the basics of
-tests/test_sql.py at 1 and 8 segments.
+the TPC-H plan corpus, and equal rows for Q1, Q6, the basics of
+tests/test_sql.py, and the joins, subqueries and high-cardinality GROUP BYs
+of the corpus, Q13, Q19 and tests/test_sql.py's join shapes, at 1 and 8
+segments.
 
 Tolerances: keys, sums (DECIMAL as scaled int64), counts and every other
 value must be equal; avg may differ by one ulp, because XLA compiles the
@@ -252,17 +254,132 @@ def test_sql_q1_fused_path_matches_jax(jrows, tdbs, monkeypatch):
     assert r.stats["fused_gate"]
 
 
-# ---- (f) unported plans ---------------------------------------------------
+# ---- (f) joins and sort-based grouping ------------------------------------
 
-def test_join_raises_naming_its_roadmap_item(tdbs):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        tdbs[8].sql(TPCH_QUERIES["q3_shipping_priority"])
+# the corpus queries with joins, subqueries (semi, anti and null-aware anti
+# joins) and GROUP BYs without a dense key domain; tests/test_tpch_more.py's
+# Q13 and Q19; tests/test_sql.py's join shapes -> (text, avg columns)
+JOIN_QUERIES = dict(
+    {name: (TPCH_QUERIES[name], ()) for name in (
+        "q3_shipping_priority", "q10_returned_items", "q12_shipmode",
+        "q14_promo_effect", "q18_large_volume", "semi_exists", "anti_not_in",
+        "cross_join_scalar", "two_phase_strewn_group")},
+    q13=("""select c_count, count(*) as custdist from (
+              select c_custkey, count(o_orderkey) as c_count
+              from customer left join orders
+                on c_custkey = o_custkey and o_comment not like '%comment 1%'
+              group by c_custkey) c_orders
+            group by c_count order by custdist desc, c_count desc""", ()),
+    q19=("""select sum(l_extendedprice * (1 - l_discount)) as revenue
+            from lineitem, part
+            where p_partkey = l_partkey
+              and ((p_brand = 'Brand#11' and l_quantity between 1 and 11
+                    and p_size between 1 and 5)
+                or (p_brand = 'Brand#22' and l_quantity between 10 and 20
+                    and p_size between 1 and 10)
+                or (p_brand = 'Brand#33' and l_quantity between 20 and 30
+                    and p_size between 1 and 15))
+              and l_shipmode in ('AIR', 'REG AIR')""", ()),
+    explicit_join=("select o_orderkey, c_name from orders join customer "
+                   "on c_custkey = o_custkey where o_orderkey <= 5 "
+                   "order by o_orderkey", ()),
+    left_join_nulls=("select a.k, w from lj_a a left join lj_b b "
+                     "on a.k = b.k order by a.k", ()),
+    duplicate_build_keys=("select a.v av, b.v bv from dup_b a join dup_b b "
+                          "on a.k = b.k order by av, bv", ()),
+    fk_fk_multi=("select count(*) from customer, supplier "
+                 "where c_nationkey = s_nationkey", ()),
+    left_join_duplicate_build=("select a.k, w from ml_a a left join ml_b b "
+                               "on a.k = b.k order by a.k, w nulls last",
+                               ()),
+    avg_over_join=("select o_orderpriority, count(*), avg(l_quantity) "
+                   "from orders join lineitem on o_orderkey = l_orderkey "
+                   "where l_shipmode = 'AIR' group by o_orderpriority "
+                   "order by o_orderpriority", (2,)),
+)
+
+# tests/test_sql.py's small join tables
+SMALL_TABLES = {
+    "lj_a": ("create table lj_a (k int, v int) distributed by (k)",
+             {"k": [1, 2, 3], "v": [10, 20, 30]}),
+    "lj_b": ("create table lj_b (k int, w int) distributed by (k)",
+             {"k": [1, 3], "w": [100, 300]}),
+    "dup_b": ("create table dup_b (k int, v int) distributed by (k)",
+              {"k": [1, 1, 2, 3, 4, 5, 6, 7], "v": [1, 2, 3, 4, 5, 6, 7, 8]}),
+    "ml_a": ("create table ml_a (k int, v int) distributed by (k)",
+             {"k": [1, 2, 3], "v": [10, 20, 30]}),
+    "ml_b": ("create table ml_b (k int, w int) distributed by (k)",
+             {"k": [1, 1, 3], "w": [100, 101, 300]}),
+}
 
 
-def test_sort_grouping_raises_naming_its_roadmap_item(tdbs):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        tdbs[8].sql("select extract(year from o_orderdate) y, count(*) "
-                    "from orders group by 1 order by 1")
+@pytest.fixture(scope="module")
+def join_rows(jdb, tdbs):
+    for db in [jdb] + list(tdbs.values()):
+        for ddl, cols in SMALL_TABLES.values():
+            db.sql(ddl)
+            db.load_table(ddl.split()[2], {k: np.asarray(v)
+                                           for k, v in cols.items()})
+    return {name: jdb.sql(text).rows()
+            for name, (text, _) in JOIN_QUERIES.items()}
+
+
+@pytest.mark.parametrize("nseg", [1, 8])
+@pytest.mark.parametrize("name", sorted(JOIN_QUERIES))
+def test_join_rows_equal_jax(join_rows, tdbs, name, nseg):
+    text, avg_cols = JOIN_QUERIES[name]
+    r = tdbs[nseg].sql(text)
+    _assert_rows_equal(r.rows(), join_rows[name], avg_cols)
+    assert r.stats["wall_ms"] > 0
+
+
+def test_q3_direct_and_hash_joins_agree(tdbs):
+    """Q3 through the direct-addressed joins and through the sort-built
+    hash tables (``no_direct``): the same rows."""
+    db = tdbs[8]
+    planned, consts, _ = db._plan(tparse(TPCH_QUERIES[
+        "q3_shipping_priority"])[0])
+    direct = db.executor.run(planned, consts)
+    hashed = db.executor.run(planned, consts, no_direct=True)
+    assert len(direct) == 10
+    assert hashed.rows() == direct.rows()
+
+
+def test_sql_q12_fused_launches(tdbs, monkeypatch):
+    """Q12's partial Aggregate over the join output takes the fused kernel
+    (here its plain version) once per run of its plan; the first run of
+    the statement also runs the unique-key plan that met duplicate build
+    keys, so it counts one more."""
+    calls = []
+    plain = fused_agg._segment_reduce_plain
+
+    def spy(table):
+        calls.append(table.D)
+        return plain(table)
+
+    monkeypatch.setattr(fused_agg, "_segment_reduce_plain", spy)
+    db = greengage_tpu_torch.connect(numsegments=8, device="cpu")
+    ttpch.load(db, sf=0.01, tables=["orders", "lineitem"])
+    db.sql("analyze")
+    db.settings.fused_dense_min_rows = 1000
+    q = TPCH_QUERIES["q12_shipmode"]
+    first = db.sql(q)
+    assert first.stats["fused_gate"]
+    assert len(calls) == 1 + first.stats["multi_join_replan"]
+    for _ in range(2):
+        before = len(calls)
+        again = db.sql(q)
+        assert len(calls) == before + 1
+        assert again.rows() == first.rows()
+
+
+@pytest.mark.parametrize("text", [
+    TPCH_QUERIES["global_window_rank"],
+    TPCH_QUERIES["union_all_branches"],
+])
+def test_windows_and_union_raise_naming_their_roadmap_item(tdbs, text):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        tdbs[8].sql(text)
 
 
 @pytest.mark.parametrize("stmt", [
@@ -407,3 +524,28 @@ def test_sql_q1_on_the_card_equals_the_cpu():
     got = dbs["cuda"].sql(Q1).rows()
     assert fused_agg.LAUNCHES == before + 1
     _assert_rows_equal(got, want, QUERIES["q1"][1])
+
+
+@pytest.mark.cuda
+def test_sql_q3_and_q12_on_the_card_equal_the_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dbs = {}
+    for dev in ("cpu", "cuda"):
+        db = greengage_tpu_torch.connect(numsegments=8, device=dev)
+        db.settings.fused_dense_min_rows = 1000
+        ttpch.load(db, sf=0.01, tables=["customer", "orders", "lineitem"])
+        db.sql("analyze")
+        dbs[dev] = db
+    for name in ("q3_shipping_priority", "q12_shipmode"):
+        text = TPCH_QUERIES[name]
+        want = dbs["cpu"].sql(text).rows()
+        assert dbs["cuda"].sql(text).rows() == want
+        before = fused_agg.LAUNCHES
+        assert dbs["cuda"].sql(text).rows() == want
+        assert fused_agg.LAUNCHES == before + (name == "q12_shipmode")
+    planned, consts, _ = dbs["cuda"]._plan(
+        tparse(TPCH_QUERIES["q3_shipping_priority"])[0])
+    hashed = dbs["cuda"].executor.run(planned, consts, no_direct=True)
+    assert hashed.rows() == dbs["cpu"].sql(
+        TPCH_QUERIES["q3_shipping_priority"]).rows()
