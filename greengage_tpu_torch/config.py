@@ -37,6 +37,9 @@ class Settings:
     # capacity axis (row-order identical to one exchange); the planner's
     # redistribute overlap credit follows it (exec/session.py)
     motion_pipeline_buckets: int = 1
+    # range-repartition window (exec/compile.py _c_motion_range): leading
+    # key samples per segment for the splitter pick
+    window_range_sample: int = 64
 
     def set(self, name: str, value) -> None:
         if not hasattr(self, name) or name.startswith("_"):

@@ -14,10 +14,14 @@ compaction totals) come back by name beside the output columns.
 Lowered here: Scan, Filter, Project, Join (inner, left, semi, anti,
 null-aware anti and cross; unique, multi-match and direct-addressed),
 Aggregate (dense, sort-based and scalar grouping, single/partial/final,
-with the fused-kernel gate), PartialState, Motion (Redistribute,
-Broadcast), Sort and Limit, plus the pre-Gather compaction. Window, Union
-and ConstRel raise NotImplementedError naming the ROADMAP item that ports
-them — at compile time, before anything runs.
+with the fused-kernel gate), PartialState, Motion (Redistribute by hash
+or by sampled-splitter ranges, Broadcast), Window (segment-local, and the
+global unordered, ordered and range modes), Union, ConstRel, Sort and
+Limit, plus the pre-Gather compaction. The JAX compiler's collectives map
+onto the leading segment axis: ``all_gather`` is the ``[nseg, ...]``
+tensor itself, ``psum``/``pmin``/``pmax`` reduce over dim 1 and then dim
+0, ``axis_index`` is ``arange(nseg)[:, None]`` and "the segments before
+this one" an exclusive cumsum along dim 0.
 
 Capacities follow the JAX compiler: a Redistribute's per-destination
 bucket, a join's hash table and expansion and a sort-based Aggregate's
@@ -46,25 +50,23 @@ from greengage_tpu_torch.ops import fused_agg
 from greengage_tpu_torch.ops import hashing
 from greengage_tpu_torch.ops import join as join_ops
 from greengage_tpu_torch.ops import sort as sort_ops
+from greengage_tpu_torch.ops import window as win_ops
 from greengage_tpu_torch.ops.batch import Batch
 from greengage_tpu_torch.ops.expr_eval import Evaluator, descale
 from greengage_tpu_torch.parallel import motion as motion_ops
 from greengage_tpu_torch.parallel.mesh import SegmentLayout
 from greengage_tpu_torch.planner.locus import LocusKind
 from greengage_tpu_torch.planner.logical import (
-    Aggregate, Filter, Join, Limit, Motion, MotionKind, PartialState, Plan,
-    Project, Scan, Sort,
+    Aggregate, ConstRel, Filter, Join, Limit, Motion, MotionKind,
+    PartialState, Plan, Project, Scan, Sort, Union, Window,
 )
 
 VALID_PREFIX = "@v:"
-
-# nodes of the JAX compiler this port does not lower yet -> the ROADMAP
-# item that ports them
-_UNPORTED = {
-    "Window": "windows: ROADMAP Queue 1 item 4",
-    "Union": "UNION: ROADMAP Queue 1 item 4",
-    "ConstRel": "constant relations: ROADMAP Queue 1 item 4",
-}
+# signed images of the uint64 extremes: 0 and 0xFFFF_FFFF_FFFF_FFFF
+ENC_MIN = -(1 << 63)
+ENC_MAX = (1 << 63) - 1
+# the positional window functions that read another row's value
+VALUE_FUNCS = ("lag", "lead", "first_value", "last_value")
 
 
 def _pow2(n: float) -> int:
@@ -72,6 +74,26 @@ def _pow2(n: float) -> int:
     while m < n:
         m <<= 1
     return m
+
+
+def _before(x):
+    """Exclusive cumsum along the segment axis (dim 0): each segment's sum
+    of the segments before it."""
+    return torch.cat([torch.zeros_like(x[:1]), x[:-1]]).cumsum(0)
+
+
+def _lag_lead_lookup(fname, param, rn0, n_total, lookup, live):
+    """lag/lead via a global position lookup -> (values, valid); the
+    SQL-standard default argument replaces out-of-partition offsets.
+    Shared by the ordered-global and range window lowerings."""
+    k, default = param if isinstance(param, tuple) else (param, None)
+    p = rn0 - k if fname == "lag" else rn0 + k
+    ok = (p >= 0) & (p < n_total)
+    val, vv = lookup(p)
+    if default is not None:
+        val = torch.where(ok, val, torch.full_like(val, default))
+        return val, (ok & vv | ~ok) & live
+    return val, ok & vv & live
 
 
 @dataclass
@@ -266,9 +288,11 @@ class Compiler:
     # ------------------------------------------------------------------
     def _capacity_of(self, plan: Plan) -> int:
         """Static per-segment row capacity of a node's output batch."""
+        if isinstance(plan, ConstRel):
+            return 1
         if isinstance(plan, Scan):
             return self.tables[plan.table].capacity
-        if isinstance(plan, (Filter, Project, Sort, PartialState)):
+        if isinstance(plan, (Filter, Project, Sort, PartialState, Window)):
             return self._capacity_of(plan.child)
         if isinstance(plan, Limit):
             cap = self._capacity_of(plan.child)
@@ -313,6 +337,8 @@ class Compiler:
                                      64)), child_cap)
             est = int(max(plan.est_rows, 16.0) * 1.3) + 64
             return min(_pow2(est) * (4 ** self.tier), child_cap)
+        if isinstance(plan, Union):
+            return sum(self._capacity_of(c) for c in plan.inputs)
         if isinstance(plan, Motion):
             child_cap = self._capacity_of(plan.child)
             if plan.kind is MotionKind.BROADCAST:
@@ -404,6 +430,16 @@ class Compiler:
             return b
 
         return counted
+
+    def _c_constrel(self, plan: ConstRel):
+        """The one constant row, live on segment 0 only."""
+        nseg, dev = self.nseg, self.device
+
+        def run(ctx):
+            sel = torch.arange(nseg, device=dev)[:, None] == 0
+            return Batch({}, {}, sel)
+
+        return run
 
     def _c_scan(self, plan: Scan):
         if plan.parts is not None:
@@ -1014,6 +1050,9 @@ class Compiler:
         hash_exprs = plan.hash_exprs
         fid = f"motion_overflow_{len(self.flags)}"
         self.flags.append(fid)
+        if plan.range_spec is not None:
+            return self._c_motion_range(plan, child_fn, C, nb, fid,
+                                        exchanged, arrays)
 
         def run(ctx):
             b = child_fn(ctx)
@@ -1027,6 +1066,607 @@ class Compiler:
                 arrays(b), b.selection(), dest, nseg, C, nbuckets=nb)
             ctx["flags"].append((fid, overflow))
             return exchanged(recv, precv)
+
+        return run
+
+    def _c_motion_range(self, plan: Motion, child_fn, C: int, nb: int,
+                        fid: str, exchanged, arrays):
+        """Range repartition by sampled splitters (the distributed
+        sample-sort routing step): each segment samples S evenly spaced
+        values of its locally sorted leading key, the gathered sample
+        sorts, and nseg-1 splitters route every row, so equal keys
+        co-locate and segments own contiguous ranges. Rows go through the
+        same bucketed exchange as a hash Redistribute, with its overflow
+        flag: a skewed key retries at the next tier."""
+        spec = plan.range_spec
+        nseg = self.nseg
+        S = max(int(self.s.window_range_sample), 8)
+
+        def run(ctx):
+            b = child_fn(ctx)
+            sel = b.selection()
+            dev = sel.device
+            v, valid = Evaluator(b, self.consts).column(spec["expr"])
+            enc = sort_ops.encode_key64(v, spec["desc"], spec["kind"])
+            if valid is not None:
+                # live NULL keys are all peers on the leading key: route
+                # them together to the end their placement puts them at
+                enc = torch.where(valid, enc, ENC_MIN if spec["nulls_first"]
+                                  else ENC_MAX)
+            n = sel.shape[1]
+            enc_sorted = torch.where(sel, enc, ENC_MAX).sort(dim=1).values
+            live = sel.sum(dim=1)
+            take = torch.clamp(
+                (torch.arange(S, device=dev)[None, :] * live[:, None]) // S,
+                0, n - 1)
+            samp = torch.where(live[:, None] > 0, enc_sorted.gather(1, take),
+                               ENC_MAX)
+            g = samp.reshape(-1).sort().values
+            # splitter i sits at (i + 1) * (nseg * S) // nseg - 1 of the
+            # sorted gathered sample: every S-th entry
+            splitters = g[S - 1:(nseg - 1) * S:S].contiguous()
+            # count of splitters strictly below enc: equal keys land on
+            # the same destination segment, always
+            dest = torch.searchsorted(splitters, enc.contiguous())
+            recv, precv, overflow = motion_ops.redistribute(
+                arrays(b), sel, dest, nseg, C, nbuckets=nb)
+            ctx["flags"].append((fid, overflow))
+            return exchanged(recv, precv)
+
+        return run
+
+    # ---- windows -------------------------------------------------------
+    def _eq_prev(self, ev: Evaluator, exprs, shape, dev):
+        """bool [nseg, cap]: row i has the same values of ``exprs`` as row
+        i-1 (two NULLs are equal); False at row 0."""
+        eq = torch.ones(shape, dtype=torch.bool, device=dev)
+        eq[:, 0] = False
+        for e in exprs:
+            v, valid = ev.column(e)
+            same = v[:, 1:] == v[:, :-1]
+            if valid is not None:
+                same = (same & valid[:, 1:] & valid[:, :-1]) | (
+                    ~valid[:, 1:] & ~valid[:, :-1])
+            eq[:, 1:] &= same
+        return eq
+
+    @staticmethod
+    def _live_pair(sel_sorted):
+        """Row i and row i-1 both live: dead rows, which the sort parks at
+        the end, always break a partition and a peer group (padded values
+        can compare equal to the last live row)."""
+        pair = sel_sorted.clone()
+        pair[:, 0] = False
+        pair[:, 1:] &= sel_sorted[:, :-1]
+        return pair
+
+    def _win_args(self, ev: Evaluator, arg):
+        """-> (values, valid, decimal scale) of a window argument."""
+        if arg is None:
+            return None, None, 0
+        vals, valid = ev.column(arg)
+        scale = arg.type.scale if arg.type.kind is T.Kind.DECIMAL else 0
+        return vals, valid, scale
+
+    def _c_window(self, plan: Window):
+        if getattr(plan, "global_mode", False):
+            return self._c_window_global(plan)
+        child_fn = self._compile_node(plan.child)
+        cap = self._capacity_of(plan.child)
+        pkeys = plan.partition_keys
+        okeys = plan.order_keys
+        wfuncs = plan.wfuncs
+
+        def run(ctx):
+            b = child_fn(ctx)
+            # sort by (partition, order); dead rows go to the end
+            skeys = self.sort_keys(
+                b, [(e, False, None) for e in pkeys] + list(okeys))
+            perm, sel_sorted, _ = sort_ops.sort_batch(skeys, b.selection(),
+                                                      cap)
+            cols, valids = sort_ops.apply_perm(b.cols, b.valids, perm)
+            sb = Batch(cols, valids, sel_sorted)
+            ev = Evaluator(sb, self.consts)
+            shape, dev = sel_sorted.shape, sel_sorted.device
+            if pkeys:
+                part_eq = self._eq_prev(ev, pkeys, shape, dev)
+            else:
+                part_eq = torch.ones(shape, dtype=torch.bool, device=dev)
+                part_eq[:, 0] = False
+            part_eq = part_eq & self._live_pair(sel_sorted)
+            peer_eq = part_eq
+            if okeys:
+                peer_eq = part_eq & self._eq_prev(
+                    ev, [e for e, _, _ in okeys], shape, dev)
+            funcs = []
+            for ci, fname, arg, ordered, param in wfuncs:
+                vals, valid, scale = self._win_args(ev, arg)
+                funcs.append(win_ops.WinFunc(ci.id, fname, vals, valid,
+                                             scale, ordered, param))
+            wvals, wvalids = win_ops.compute(part_eq, peer_eq, sel_sorted,
+                                             funcs, frame=plan.frame)
+            out_c = dict(sb.cols)
+            out_v = dict(sb.valids)
+            for ci, *_ in wfuncs:
+                out_c[ci.id] = wvals[ci.id]
+                out_v.pop(ci.id, None)
+                if wvalids.get(ci.id) is not None:
+                    out_v[ci.id] = wvalids[ci.id]
+            return Batch(out_c, out_v, sel_sorted)
+
+        return run
+
+    def _c_window_global(self, plan: Window):
+        """Distributed GLOBAL window (no PARTITION BY, no ORDER BY): the
+        whole table is one partition, so every function is a reduction
+        over every segment, broadcast back — rows never move. row_number()
+        is the local live-row prefix count plus the live rows of the
+        segments before; sum/count/avg/min/max reduce over dim 1, then
+        over dim 0."""
+        child_fn = self._compile_node(plan.child)
+        cap = self._capacity_of(plan.child)
+        wfuncs = plan.wfuncs
+        nseg = self.nseg
+        if plan.global_mode == "ordered":
+            return self._c_window_global_ordered(plan, child_fn, cap)
+        if plan.global_mode == "range":
+            return self._c_window_global_range(plan, child_fn, cap)
+
+        def run(ctx):
+            b = child_fn(ctx)
+            sel = b.selection()
+            shape = sel.shape
+            ev = Evaluator(b, self.consts)
+            out_c = dict(b.cols)
+            out_v = dict(b.valids)
+            for ci, fname, arg, _ordered, _param in wfuncs:
+                vals, valid, scale = self._win_args(ev, arg)
+                lv = sel if valid is None else (sel & valid)
+                if fname in ("first_value", "last_value"):
+                    # whole-frame semantics (legal without ORDER BY, PG):
+                    # the first/last live ROW of the one global partition
+                    # in (segment, row) order — its value even when NULL
+                    va = valid if valid is not None else torch.ones_like(sel)
+                    s8 = sel.to(torch.uint8)
+                    if fname == "first_value":
+                        li = s8.argmax(dim=1)
+                    else:
+                        li = cap - 1 - s8.flip(1).argmax(dim=1)
+                    g_has = sel.any(dim=1)
+                    g_val = vals.gather(1, li[:, None])[:, 0]
+                    g_ok = va.gather(1, li[:, None])[:, 0]
+                    h8 = g_has.to(torch.uint8)
+                    if fname == "first_value":
+                        pick = h8.argmax()
+                    else:
+                        pick = nseg - 1 - h8.flip(0).argmax()
+                    # gathers, not indexing by a 0-dim tensor (which reads
+                    # it on the host)
+                    pick = pick.reshape(1)
+                    out_c[ci.id] = g_val.gather(0, pick).expand(shape)
+                    out_v[ci.id] = (g_ok.gather(0, pick)
+                                    & g_has.any()).expand(shape)
+                    continue
+                if fname == "row_number":
+                    local = sort_ops.cumsum_rows(sel.to(torch.int64))
+                    out_c[ci.id] = local + _before(sel.sum(dim=1))[:, None]
+                    out_v.pop(ci.id, None)
+                    continue
+                c = lv.sum(dim=1).sum()
+                if fname == "count":
+                    out_c[ci.id] = c.expand(shape)
+                    out_v.pop(ci.id, None)
+                    continue
+                if fname in ("sum", "avg"):
+                    acc = torch.float64 if vals.dtype.is_floating_point \
+                        else torch.int64
+                    s = torch.where(lv, vals.to(acc), torch.zeros(
+                        (), dtype=acc, device=sel.device)).sum(dim=1).sum()
+                    if fname == "sum":
+                        out_c[ci.id] = s.expand(shape)
+                    else:
+                        a = s.to(torch.float64) / torch.where(
+                            c == 0, 1, c).to(torch.float64)
+                        if scale:
+                            a = a / (10.0 ** scale)
+                        out_c[ci.id] = a.expand(shape)
+                    out_v[ci.id] = (c > 0).expand(shape)
+                    continue
+                # min / max (the identity fill of ops/window.py)
+                filled = torch.where(lv, vals, torch.full_like(
+                    vals, win_ops.minmax_identity(vals.dtype, fname)))
+                red = (filled.amin(dim=1).amin() if fname == "min"
+                       else filled.amax(dim=1).amax())
+                out_c[ci.id] = red.expand(shape)
+                out_v[ci.id] = (c > 0).expand(shape)
+            return Batch(out_c, out_v, sel)
+
+        return run
+
+    def _ordered_encoding(self, spec, ev: Evaluator, sel):
+        """-> (enc, isnull_cls, nulls_first, dead): each row's ORDER BY
+        keys as the signed image of one order-preserving uint64
+        (planner._ordered_global_spec).
+
+        packed — every key maps to (null_bit, value - lo) fields using
+          exact zone-map bounds; DESC complements within the field, NULLS
+          FIRST/LAST picks the null bit polarity. NULLs are ordinary key
+          values here.
+        full64 — one key, no bounds: sign-flip encoding over the full
+          64-bit domain; NULL keys form a separate runtime class (all
+          NULLs tie, placed per nulls_first)."""
+        if spec["mode"] != "packed":
+            v, valid = ev.column(spec["expr"])
+            enc = sort_ops.encode_key64(v, spec["desc"],
+                                        spec.get("kind", "int"))
+            isnull = (sel & ~valid) if valid is not None \
+                else torch.zeros_like(sel)
+            return enc, isnull, spec["nulls_first"], ~sel | isnull
+        shift = 64
+        enc = torch.zeros(sel.shape, dtype=torch.int64, device=sel.device)
+        for f in spec["fields"]:
+            v, valid = ev.column(f["expr"])
+            v64 = v.to(torch.int64)
+            ve = (int(f["hi"]) - v64) if f["desc"] else (v64 - int(f["lo"]))
+            # the clamp defends against out-of-zone filler values at dead
+            # rows; live values are inside by soundness
+            ve = torch.clamp(ve, 0, (1 << f["bits"]) - 1)
+            # the null flag: 1 marks the later of NULL / non-NULL
+            nn_bit, nl_bit = (1, 0) if f["nulls_first"] else (0, 1)
+            if valid is None:
+                fe = ve | (nn_bit << f["bits"])
+            else:
+                fe = torch.where(valid, ve | (nn_bit << f["bits"]),
+                                 nl_bit << f["bits"])
+            shift -= f["bits"] + 1
+            enc = enc | (fe << shift)
+        return (enc ^ sort_ops.BIT63, torch.zeros_like(sel), False, ~sel)
+
+    def _c_window_global_ordered(self, plan: Window, child_fn, cap: int):
+        """Distributed GLOBAL ranking family (row_number/rank/dense_rank/
+        ntile/lag/lead/first_value/last_value) over bounded or single
+        ORDER BY keys: each row's GLOBAL position and the global row count
+        are computed in place — per segment, encode the keys
+        order-preservingly into one word and sort them locally; per row,
+        one searchsorted against every segment's sorted run (the
+        ``[nseg, cap]`` tensor the JAX package all-gathers) counts the
+        keys below and equal. ntile is then arithmetic on (position,
+        count); lag/lead/first/last resolve position +- offset via a
+        lookup into the globally sorted runs. row_number() breaks ties by
+        (segment, local sorted position); dense_rank counts distinct keys
+        via one sort of the flattened runs and a boundary cumsum."""
+        wfuncs = plan.wfuncs
+        nseg = self.nseg
+        spec = plan.gkey_spec
+        need_dense = any(f[1] == "dense_rank" for f in wfuncs)
+        need_values = any(f[1] in VALUE_FUNCS for f in wfuncs)
+        full64 = spec["mode"] != "packed"
+
+        def run(ctx):
+            b = child_fn(ctx)
+            sel = b.selection()
+            dev = sel.device
+            ev = Evaluator(b, self.consts)
+            enc, isnull_cls, nulls_first, dead = self._ordered_encoding(
+                spec, ev, sel)
+            # dead rows park at the top of the sorted run (the dead flag is
+            # the leading sort key) and their counted contributions are
+            # clamped away by the live counts below
+            enc_d = torch.where(dead, ENC_MAX, enc)
+            rid = torch.arange(cap, device=dev).expand(nseg, cap)
+            sorted_rid = sort_ops._lexsort([dead.to(torch.uint8), enc_d], cap)
+            sorted_enc = enc_d.gather(1, sorted_rid)
+            live_n = (~dead).sum(dim=1)                       # [nseg]
+            # every row against every segment's sorted run:
+            # [runs, nseg * cap] -> [runs, nseg, cap]
+            queries = enc_d.reshape(1, -1).expand(nseg, -1).contiguous()
+            lim = live_n[:, None, None]
+            left = torch.minimum(torch.searchsorted(
+                sorted_enc, queries).reshape(nseg, nseg, cap), lim)
+            right = torch.minimum(torch.searchsorted(
+                sorted_enc, queries, right=True).reshape(nseg, nseg, cap),
+                lim)
+            eq = right - left
+            less_g = left.sum(dim=0)
+            seg = torch.arange(nseg, device=dev)
+            prior = (seg[:, None] < seg[None, :])[:, :, None]   # [run, seg]
+            eq_prior = torch.where(prior, eq, 0).sum(dim=0)
+            del left, right
+            # local tie position (stable by original row order)
+            pos = torch.empty_like(sorted_rid).scatter_(1, sorted_rid, rid)
+            first_eq = torch.minimum(
+                torch.searchsorted(sorted_enc, enc_d), live_n[:, None])
+            local_eq_before = pos - first_eq
+
+            # the NULL class (full64 only): all NULL-key rows tie, placed
+            # before or after every valued row per nulls_first
+            g_null = isnull_cls.sum(dim=1)                    # [nseg]
+            n_null_total = g_null.sum()
+            total_valued = live_n.sum()
+            local_null_idx = sort_ops.cumsum_rows(
+                isnull_cls.to(torch.int64)) - 1
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            valued_base = n_null_total if nulls_first else zero
+            null_base = zero if nulls_first else total_valued
+
+            # global 0-based position of every row and the GLOBAL row count
+            rn0 = torch.where(
+                isnull_cls,
+                null_base + _before(g_null)[:, None] + local_null_idx,
+                valued_base + less_g + eq_prior + local_eq_before)
+            n_total = total_valued + n_null_total
+
+            flat = flive = fperm = None
+            if need_dense or need_values:
+                # the runs flattened segment-major, sorted by (enc,
+                # live-first): live entries occupy [0, total_valued) in
+                # rank order. Dead entries carry the max word, so a LIVE
+                # max-value row sorts before them (the secondary key)
+                flat = sorted_enc.reshape(1, -1)
+                flive = (torch.arange(cap, device=dev)[None, :]
+                         < live_n[:, None]).reshape(1, -1)
+                fperm = sort_ops._lexsort(
+                    [flat, (~flive).to(torch.uint8)], nseg * cap)[0]
+
+            dense_b = total_distinct = None
+            if need_dense:
+                s_enc = flat[0, fperm]
+                s_live = flive[0, fperm]
+                first = torch.ones_like(s_live)
+                first[1:] = s_enc[1:] != s_enc[:-1]
+                d = (s_live & first).to(torch.int64)
+                cum_excl = d.cumsum(0) - d
+                at = torch.searchsorted(s_enc, enc_d.reshape(-1))
+                dense_b = cum_excl[torch.clamp(at, 0, nseg * cap - 1)] \
+                    .reshape(nseg, cap)
+                total_distinct = d.sum()
+
+            cum_null = g_null.cumsum(0)
+
+            def make_lookup(arg):
+                """-> lookup(p): the window argument's (value, valid) at
+                GLOBAL position p. Valued positions read the globally
+                sorted value run; full64 NULL-class positions read a
+                (segment, row)-ordered run of the null-key rows."""
+                vals, valid = ev.column(arg)
+                va = valid if valid is not None else torch.ones_like(sel)
+                s_vals = vals.gather(1, sorted_rid).reshape(-1)[fperm]
+                s_valid = va.gather(1, sorted_rid).reshape(-1)[fperm]
+                g_nv = g_nvv = None
+                if full64:
+                    # null-key rows compacted to the front of each
+                    # segment; every other row stores to the spare slot
+                    npos = torch.where(isnull_cls, local_null_idx, cap)
+                    g_nv = torch.zeros((nseg, cap + 1), dtype=vals.dtype,
+                                       device=dev).scatter_(
+                        1, npos, vals)[:, :cap].reshape(-1)
+                    g_nvv = torch.zeros((nseg, cap + 1), dtype=torch.bool,
+                                        device=dev).scatter_(
+                        1, npos, va)[:, :cap].reshape(-1)
+
+                def lookup(p):
+                    q = torch.clamp(p - n_null_total if nulls_first else p,
+                                    0, nseg * cap - 1)
+                    val, ok = s_vals[q], s_valid[q]
+                    if g_nv is not None:
+                        in_null = (p < n_null_total) if nulls_first \
+                            else (p >= total_valued)
+                        j = p if nulls_first else p - total_valued
+                        sg = torch.clamp(torch.searchsorted(
+                            cum_null, j, right=True), 0, nseg - 1)
+                        loc = torch.clamp(j - (cum_null[sg] - g_null[sg]),
+                                          0, cap - 1)
+                        val = torch.where(in_null, g_nv[sg * cap + loc], val)
+                        ok = torch.where(in_null, g_nvv[sg * cap + loc], ok)
+                    return val, ok
+
+                return lookup
+
+            out_c = dict(b.cols)
+            out_v = dict(b.valids)
+            for ci, fname, arg, _ordered, param in wfuncs:
+                out_v.pop(ci.id, None)
+                if fname == "row_number":
+                    out_c[ci.id] = rn0 + 1
+                elif fname == "rank":
+                    out_c[ci.id] = torch.where(
+                        isnull_cls, null_base, valued_base + less_g) + 1
+                elif fname == "dense_rank":
+                    valued = dense_b + ((n_null_total > 0) & nulls_first)
+                    nullv = zero if nulls_first else total_distinct
+                    out_c[ci.id] = torch.where(isnull_cls, nullv, valued) + 1
+                elif fname == "ntile":
+                    out_c[ci.id] = win_ops.ntile_bucket(rn0, n_total, param)
+                elif fname in ("lag", "lead"):
+                    out_c[ci.id], out_v[ci.id] = _lag_lead_lookup(
+                        fname, param, rn0, n_total, make_lookup(arg), sel)
+                else:
+                    # first_value / last_value, default frame (RANGE
+                    # UNBOUNDED PRECEDING..CURRENT ROW): the frame starts
+                    # at the global partition start and ends at the row's
+                    # last PEER
+                    if fname == "first_value":
+                        p = torch.zeros((nseg, cap), dtype=torch.int64,
+                                        device=dev)
+                    else:
+                        p = torch.where(isnull_cls,
+                                        null_base + n_null_total - 1,
+                                        valued_base + less_g + eq.sum(dim=0)
+                                        - 1)
+                    val, vv = make_lookup(arg)(p)
+                    out_c[ci.id] = val
+                    out_v[ci.id] = vv & sel
+            return Batch(out_c, out_v, sel)
+
+        return run
+
+    def _c_window_global_range(self, plan: Window, child_fn, cap: int):
+        """Global window over RANGE-repartitioned rows (the child is the
+        sampled-splitter Redistribute, _c_motion_range): each segment owns
+        a contiguous range of the leading ORDER BY key with equal keys
+        co-located, so after a segment-local sort by the full key list
+        the global order is the concatenation of the per-segment runs —
+        peer groups never straddle a boundary. The rank family and
+        dense_rank stitch with the live and distinct counts of the
+        segments before, ntile is arithmetic on (global position, global
+        count), running sum/count/avg/min/max add the segments before's
+        totals, and lag/lead/first_value resolve cross-segment positions
+        via a lookup into the runs."""
+        wfuncs = plan.wfuncs
+        nseg = self.nseg
+        okeys = plan.order_keys
+
+        def run(ctx):
+            b = child_fn(ctx)
+            perm, sel_sorted, _ = sort_ops.sort_batch(
+                self.sort_keys(b, okeys), b.selection(), cap)
+            cols, valids = sort_ops.apply_perm(b.cols, b.valids, perm)
+            sb = Batch(cols, valids, sel_sorted)
+            ev = Evaluator(sb, self.consts)
+            shape, dev = sel_sorted.shape, sel_sorted.device
+            idx = torch.arange(cap, device=dev).expand(shape)
+            # peer boundaries among LIVE rows
+            eq = self._eq_prev(ev, [e for e, _, _ in okeys], shape, dev) \
+                & self._live_pair(sel_sorted)
+            peer_bound = ~eq
+            peer_start, peer_end = win_ops._spans(peer_bound)
+            peer_end = torch.clamp(peer_end, 0, cap - 1)
+
+            g_n = sel_sorted.sum(dim=1)                       # [nseg]
+            prior = _before(g_n)[:, None]
+            n_total = g_n.sum()
+            cum_n = g_n.cumsum(0)
+            # live rows occupy the local prefix, so the local index is the
+            # local rank and the global 0-based position one offset away
+            rn0 = idx + prior
+
+            def make_lookup(vals, va):
+                flat_v, flat_ok = vals.reshape(-1), va.reshape(-1)
+
+                def lookup(p):
+                    sg = torch.clamp(torch.searchsorted(cum_n, p, right=True),
+                                     0, nseg - 1)
+                    loc = torch.clamp(p - (cum_n[sg] - g_n[sg]), 0, cap - 1)
+                    return flat_v[sg * cap + loc], flat_ok[sg * cap + loc]
+
+                return lookup
+
+            out_c = dict(sb.cols)
+            out_v = dict(sb.valids)
+            db_loc = sort_ops.cumsum_rows((peer_bound & sel_sorted)
+                                          .to(torch.int64))
+            for ci, fname, arg, _ordered, param in wfuncs:
+                vals, valid, scale = self._win_args(ev, arg)
+                out_v.pop(ci.id, None)
+                va = valid if valid is not None \
+                    else torch.ones_like(sel_sorted)
+                if fname == "row_number":
+                    out_c[ci.id] = rn0 + 1
+                    continue
+                if fname == "rank":
+                    out_c[ci.id] = peer_start + prior + 1
+                    continue
+                if fname == "dense_rank":
+                    out_c[ci.id] = db_loc + _before(db_loc[:, -1])[:, None]
+                    continue
+                if fname == "ntile":
+                    out_c[ci.id] = win_ops.ntile_bucket(rn0, n_total, param)
+                    continue
+                if fname in ("lag", "lead"):
+                    out_c[ci.id], out_v[ci.id] = _lag_lead_lookup(
+                        fname, param, rn0, n_total, make_lookup(vals, va),
+                        sel_sorted)
+                    continue
+                if fname in ("first_value", "last_value"):
+                    if fname == "first_value":
+                        # the global partition start lives on the first
+                        # non-empty segment
+                        val, vv = make_lookup(vals, va)(torch.zeros_like(rn0))
+                    else:
+                        # the last PEER is local: peers are whole per
+                        # segment
+                        val, vv = vals.gather(1, peer_end), \
+                            va.gather(1, peer_end)
+                    out_c[ci.id] = val
+                    out_v[ci.id] = vv & sel_sorted
+                    continue
+                # running aggregates to the last peer (default RANGE
+                # UNBOUNDED PRECEDING..CURRENT ROW): the local prefix value
+                # plus the totals of the segments before
+                lv = sel_sorted & va
+                cnt = sort_ops.cumsum_rows(lv.to(torch.int64))
+                c = cnt.gather(1, peer_end) + _before(lv.sum(dim=1))[:, None]
+                if fname in ("sum", "count", "avg"):
+                    if fname == "count" and vals is None:
+                        vals = torch.ones(shape, dtype=torch.int64,
+                                          device=dev)
+                    acc = torch.float64 if vals.dtype.is_floating_point \
+                        else torch.int64
+                    contrib = torch.where(lv, vals.to(acc), torch.zeros(
+                        (), dtype=acc, device=dev))
+                    s = win_ops.prefix_sum(contrib).gather(1, peer_end) \
+                        + _before(contrib.sum(dim=1))[:, None]
+                    if fname == "count":
+                        out_c[ci.id] = c
+                    elif fname == "sum":
+                        out_c[ci.id] = s
+                        out_v[ci.id] = c > 0
+                    else:
+                        a = s.to(torch.float64) / torch.where(
+                            c == 0, 1, c).to(torch.float64)
+                        if scale:
+                            a = a / (10.0 ** scale)
+                        out_c[ci.id] = a
+                        out_v[ci.id] = c > 0
+                    continue
+                # min / max (the identity fill of ops/window.py)
+                ident = win_ops.minmax_identity(vals.dtype, fname)
+                filled = torch.where(lv, vals, torch.full_like(vals, ident))
+                run_ = sort_ops.prefix_minmax_rows(filled, fname, ident)
+                if fname == "min":
+                    tot, op = filled.amin(dim=1), torch.minimum
+                    before = tot.cummin(0).values
+                else:
+                    tot, op = filled.amax(dim=1), torch.maximum
+                    before = tot.cummax(0).values
+                before = torch.cat([torch.full_like(before[:1], ident),
+                                    before[:-1]])
+                out_c[ci.id] = op(run_.gather(1, peer_end), before[:, None])
+                out_v[ci.id] = c > 0
+            return Batch(out_c, out_v, sel_sorted)
+
+        return run
+
+    # ---- union ---------------------------------------------------------
+    def _c_union(self, plan: Union):
+        """The branches side by side along the row axis (capacity = the
+        sum of theirs); a replicated branch keeps segment 0's copy."""
+        fns = [self._compile_node(c) for c in plan.inputs]
+        branch_ids = plan.branch_ids
+        replicated = [c.locus is not None and c.locus.kind in (
+            LocusKind.SEGMENT_GENERAL, LocusKind.GENERAL)
+            for c in plan.inputs]
+        nseg = self.nseg
+
+        def run(ctx):
+            parts_c = {uc.id: [] for uc in plan.cols}
+            parts_v = {uc.id: [] for uc in plan.cols}
+            parts_sel = []
+            for fn, ids, rep in zip(fns, branch_ids, replicated):
+                b = fn(ctx)
+                sel = b.selection()
+                if rep:
+                    sel = sel & (torch.arange(nseg, device=sel.device)
+                                 [:, None] == 0)
+                parts_sel.append(sel)
+                for uc, bid in zip(plan.cols, ids):
+                    parts_c[uc.id].append(b.cols[bid].expand(sel.shape))
+                    v = b.valids.get(bid)
+                    parts_v[uc.id].append(v.expand(sel.shape) if v is not None
+                                          else torch.ones_like(sel))
+            cols = {k: torch.cat(v, dim=1) for k, v in parts_c.items()}
+            valids = {k: torch.cat(v, dim=1) for k, v in parts_v.items()}
+            return Batch(cols, valids, torch.cat(parts_sel, dim=1))
 
         return run
 
@@ -1058,8 +1698,7 @@ class Compiler:
 
 
 def _unported(plan: Plan) -> str:
-    name = type(plan).__name__
-    return f"{name}: " + _UNPORTED.get(name, "not lowered by this compiler")
+    return f"{type(plan).__name__}: not lowered by this compiler"
 
 
 def _collect_dict_refs(plan: Plan, out: dict):

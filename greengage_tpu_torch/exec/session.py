@@ -8,10 +8,12 @@ layout on the device and the executor; ``sql()`` is exec_simple_query:
 each statement through the same steps as the JAX session's ``_sql_inner``
 -> ``_execute`` -> ``_plan`` -> ``_select``.
 
-The statements handled: SELECT (joins and subqueries included; UNION ALL
-raises at compile time until its node is ported), CREATE TABLE (DISTRIBUTED BY / RANDOMLY /
-REPLICATED), DROP TABLE, ANALYZE [table], SET and SHOW of the settings the
-port holds, and ``load_table`` for bulk loads. Every other statement
+The statements handled: SELECT (joins, subqueries, window functions,
+UNION [ALL], GROUPING SETS / ROLLUP / CUBE, and SELECT without FROM — a
+constant target list on the host, anything else through the ConstRel
+device path), CREATE TABLE (DISTRIBUTED BY / RANDOMLY / REPLICATED), DROP
+TABLE, ANALYZE [table], SET and SHOW of the settings the port holds, and
+``load_table`` for bulk loads. Every other statement, and WITH RECURSIVE,
 raises a SqlError naming the ROADMAP item it waits for; a plan node the
 compiler cannot lower raises NotImplementedError before anything runs,
 never a wrong answer.
@@ -21,9 +23,11 @@ from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from greengage_tpu_torch import resolve_device
+from greengage_tpu_torch import expr as E
 from greengage_tpu_torch import types as T
 from greengage_tpu_torch.catalog import (Catalog, Column, DistPolicy,
                                          PolicyKind, TableSchema)
@@ -34,7 +38,8 @@ from greengage_tpu_torch.parallel.mesh import make_layout
 from greengage_tpu_torch.planner import cost as _cost
 from greengage_tpu_torch.planner import plan_query
 from greengage_tpu_torch.sql import ast as A
-from greengage_tpu_torch.sql.binder import Binder, type_from_name
+from greengage_tpu_torch.sql.binder import (Binder, Scope, _ast_name,
+                                           _contains_agg, type_from_name)
 from greengage_tpu_torch.sql.parser import SqlError, parse
 from greengage_tpu_torch.storage import TableStore
 
@@ -203,11 +208,24 @@ class Database:
 
     def _select(self, stmt) -> Result:
         if getattr(stmt, "_recursive_ctes", None):
+            # the JAX session's fixpoint deletes from and loads rows into
+            # its worktables: it waits for DML
             raise SqlError("recursive CTEs are not ported yet (ROADMAP "
-                           "Queue 1 item 4)")
-        if isinstance(stmt, A.SelectStmt) and not stmt.from_:
-            raise SqlError("SELECT without FROM (a constant relation) is not "
-                           "ported yet (ROADMAP Queue 1 item 4)")
+                           "Queue 1 item 1b)")
+        if isinstance(stmt, A.SelectStmt) and not stmt.from_ \
+                and not stmt.group_by and not stmt.having \
+                and not stmt.distinct and not stmt.order_by \
+                and not any(_contains_agg(it.expr) or isinstance(it.expr,
+                                                                 A.Star)
+                            for it in stmt.items):
+            # screened BEFORE the host fast path, as the JAX session does:
+            # a bind-time failure after an InitPlan scalar subquery ran
+            # would run that subquery again on the device path
+            try:
+                return self._const_select(stmt)
+            except SqlError:
+                pass   # the host path's residual rejections (non-constant
+                # text expressions) go on to the ConstRel device path
         t0 = time.perf_counter()
         key = repr(stmt)
         multi = key in self._multi_join
@@ -229,6 +247,62 @@ class Database:
             replanned = True
         res.stats.update(plan_ms=plan_ms, multi_join_replan=replanned)
         return res
+
+    def _const_select(self, stmt: A.SelectStmt) -> Result:
+        """FROM-less SELECT: one constant row evaluated on the host (the
+        coordinator-only Result node analog — no dispatch, no segments).
+        The row is a CPU tensor by intent, as the binder's constant
+        folding is: this is host work, not a fallback from the card."""
+        from greengage_tpu_torch.ops.batch import Batch
+        from greengage_tpu_torch.ops.expr_eval import Evaluator
+
+        binder = Binder(self.catalog, self.store,
+                        subquery_executor=self._scalar_subquery)
+        scope = Scope()
+        one_row = Batch({"__one__": torch.zeros((1, 1), dtype=torch.int32)},
+                        {}, None)
+        where_false = False
+        if stmt.where is not None:
+            pred = binder._predicate(stmt.where, scope)
+            keep = Evaluator(one_row, binder.consts).predicate(pred)
+            where_false = not bool(keep.reshape(-1)[0])
+        cols, valids, names, order = {}, {}, [], []
+        for i, it in enumerate(stmt.items):
+            e = binder._expr(it.expr, scope)
+            cid = f"c#{i}"
+            t = e.type
+            if isinstance(e, E.Literal) and e.value is None:
+                val, valid_np = np.array([None], dtype=object), \
+                    np.array([False])
+            elif t.kind is T.Kind.TEXT:
+                if not isinstance(e, E.Literal):
+                    raise SqlError("SELECT without FROM supports only "
+                                   "constant text expressions")
+                val, valid_np = np.array([e.value], dtype=object), None
+            else:
+                arr, valid = Evaluator(one_row, binder.consts).column(e)
+                arr = arr.reshape(-1).numpy()
+                if valid is not None and not bool(valid.reshape(-1)[0]):
+                    val, valid_np = np.array([None], dtype=object), \
+                        np.array([False])
+                elif t.kind is T.Kind.DECIMAL:
+                    val, valid_np = arr / (10.0 ** t.scale), None
+                elif t.kind is T.Kind.DATE:
+                    val = (np.datetime64("1970-01-01", "D")
+                           + arr.astype("timedelta64[D]"))
+                    valid_np = None
+                else:
+                    val, valid_np = arr, None
+            cols[cid] = val
+            valids[cid] = valid_np
+            names.append(it.alias or _ast_name(it.expr))
+            order.append(cid)
+        limit = stmt.limit if stmt.limit is not None else 1
+        if limit == 0 or stmt.offset or where_false:
+            cols = {k: v[:0] for k, v in cols.items()}
+            valids = {k: (None if v is None else v[:0])
+                      for k, v in valids.items()}
+        return Result(columns=names, cols=cols, valids=valids, _order=order)
 
     def _scalar_subquery(self, stmt):
         """Run an uncorrelated scalar subquery at bind time (InitPlan

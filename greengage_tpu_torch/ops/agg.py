@@ -156,7 +156,9 @@ def reduce_job(gid, D: int, job: Job):
         return segment_sum(gid, D, torch.where(job.live, vals.to(job.dtype),
                                                zero))
     ident = job.ident.item() if hasattr(job.ident, "item") else job.ident
-    fill = torch.tensor(ident, dtype=vals.dtype, device=vals.device)
+    # a fill on the device: torch.tensor(ident, device=...) copies from
+    # pageable host memory, which waits for the card
+    fill = torch.full((), ident, dtype=vals.dtype, device=vals.device)
     return segment_minmax(gid, D, torch.where(job.live, vals, fill), job.op,
                           ident)
 
@@ -439,7 +441,7 @@ def sorted_group_aggregate(boundary, sel_sorted, aggs: list[AggSpec],
         else:
             ident = job.ident.item() if hasattr(job.ident, "item") \
                 else job.ident
-            fill = torch.tensor(ident, dtype=job.values.dtype, device=dev)
+            fill = torch.full((), ident, dtype=job.values.dtype, device=dev)
             filled = torch.where(job.live, job.values, fill)
             tbl = torch.full((S, out_cap + 1), ident, dtype=filled.dtype,
                              device=dev)

@@ -156,6 +156,50 @@ def cumsum_rows(x):
     return flat
 
 
+def _blocks(x, fill, block: int):
+    """x [S, n] padded with ``fill`` to whole blocks -> [S * nb, block]."""
+    S, n = x.shape
+    nb = max(-(-n // block), 1)
+    xp = torch.full((S, nb * block), fill, dtype=x.dtype, device=x.device)
+    xp[:, :n] = x
+    return xp.reshape(S * nb, block), nb
+
+
+def float_cumsum_rows(x, block: int = 1024):
+    """torch.cumsum(x, dim=1) of a float [S, n] tensor in two levels, for
+    cumsum_rows's reason: within blocks of ``block`` elements, every block
+    of every row at once, then each block plus the sum of the row's blocks
+    before it. A flat scan less each row's carry would cancel the earlier
+    rows' magnitude; here an element's error is relative to its own row's
+    prefix."""
+    S, n = x.shape
+    inner, nb = _blocks(x, 0.0, block)
+    inner = inner.cumsum(1).reshape(S, nb, block)
+    tot = inner[:, :, -1]
+    carry = torch.cat([torch.zeros_like(tot[:, :1]), tot[:, :-1]],
+                      dim=1).cumsum(1)
+    return (inner + carry[:, :, None]).reshape(S, -1)[:, :n]
+
+
+def prefix_minmax_rows(x, func: str, fill, block: int = 1024):
+    """Running min or max along the last axis of [S, n] (``lax.cummin`` /
+    ``lax.cummax``), in two levels as float_cumsum_rows: within blocks,
+    then each block against the extremum of the row's blocks before it.
+    ``fill`` is the identity (it pads the last block)."""
+    S, n = x.shape
+    inner, nb = _blocks(x, fill, block)
+    if func == "min":
+        inner, op = inner.cummin(1).values, torch.minimum
+    else:
+        inner, op = inner.cummax(1).values, torch.maximum
+    inner = inner.reshape(S, nb, block)
+    tot = inner[:, :, -1]
+    before = torch.cat([torch.full_like(tot[:, :1], fill), tot[:, :-1]],
+                       dim=1)
+    before = (before.cummin(1) if func == "min" else before.cummax(1)).values
+    return op(inner, before[:, :, None]).reshape(S, -1)[:, :n]
+
+
 def suffix_min_rows(x, fill: int, block: int = 1024):
     """out[:, i] = min(x[:, i:]) of an integer [S, n] tensor (a reverse
     cummin along the last axis), in two levels for the reason
@@ -163,11 +207,8 @@ def suffix_min_rows(x, fill: int, block: int = 1024):
     every row at once, then across each row's block minima. ``fill`` is at
     least every value of x (it pads the last block)."""
     S, n = x.shape
-    nb = max(-(-n // block), 1)
-    xp = torch.full((S, nb * block), fill, dtype=x.dtype, device=x.device)
-    xp[:, :n] = x
-    inner = xp.reshape(S * nb, block).flip(1).cummin(1).values.flip(1)
-    inner = inner.reshape(S, nb, block)
+    inner, nb = _blocks(x, fill, block)
+    inner = inner.flip(1).cummin(1).values.flip(1).reshape(S, nb, block)
     carry = inner[:, :, 0].flip(1).cummin(1).values.flip(1)
     after = torch.cat([carry[:, 1:], torch.full_like(carry[:, :1], fill)],
                       dim=1)

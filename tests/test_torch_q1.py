@@ -192,7 +192,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                         ("catalog", "catalog.py"), ("storage", "table_store.py"),
                         ("runtime", "logger.py"), ("planner", "planner.py"),
                         ("exec", "session.py"), ("ops", "scalar.py"),
-                        ("ops", "join.py")]:
+                        ("ops", "join.py"), ("ops", "window.py"),
+                        ("utils", "tpcds.py")]:
         assert os.path.join("greengage_tpu_torch", sub, module) in rel
     assert "chip_smoke.py" in rel
     for path in sources:

@@ -144,3 +144,37 @@ def test_row_scans_equal_torch(shape):
     want = h.flip(1).cummin(1).values.flip(1) if shape[1] else h
     for block in (1024, 7):
         assert torch.equal(tsort.suffix_min_rows(h, big, block), want)
+
+
+@pytest.mark.parametrize("shape", [(1, 5), (3, 1000), (8, 3001), (2, 2048),
+                                   (4, 0)])
+def test_window_scans_equal_torch(shape):
+    """float_cumsum_rows and prefix_minmax_rows (the two-level scans of the
+    window lowerings) against torch's own scans along the last axis: the
+    running min and max exactly, NaN included; the float sum within 8 ulps
+    of the row's prefix of absolute values."""
+    g = torch.Generator().manual_seed(sum(shape) + 1)
+    x = torch.randn(shape, generator=g, dtype=torch.float64) * 1e6
+    bound = 8 * torch.finfo(torch.float64).eps * x.abs().cumsum(1)
+    ix = torch.randint(-2 ** 62, 2 ** 62, shape, generator=g)
+    if shape[1] > 3:
+        x[0, 3] = float("nan")
+    for block in (1024, 7):
+        got = tsort.float_cumsum_rows(x, block)
+        want = torch.cumsum(x, dim=1)
+        assert torch.equal(got.isnan(), want.isnan())
+        fin = ~want.isnan()
+        assert bool(((got - want).abs()[fin] <= bound[fin]).all())
+        for func, fill, ifill in (("min", float("inf"), 2 ** 63 - 1),
+                                  ("max", float("-inf"), -2 ** 63)):
+            op = torch.cummin if func == "min" else torch.cummax
+            want = op(x, dim=1).values if shape[1] else x
+            assert torch.equal(tsort.prefix_minmax_rows(x, func, fill,
+                                                        block).isnan(),
+                               want.isnan())
+            assert torch.equal(tsort.prefix_minmax_rows(x, func, fill,
+                                                        block)[~want.isnan()],
+                               want[~want.isnan()])
+            want = op(ix, dim=1).values if shape[1] else ix
+            assert torch.equal(tsort.prefix_minmax_rows(ix, func, ifill,
+                                                        block), want)
