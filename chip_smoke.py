@@ -1868,8 +1868,336 @@ def phase_spill(torch, data, db, nseg: int, reps: int, name: str):
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                ok=True)
     emit(out)
-    db.close()
     return launches, form
+
+
+# ---------------------------------------------------------------------------
+# batched serving, cancellation, statement timeouts, the resource queue
+# ---------------------------------------------------------------------------
+
+# TPC-H Q6 as a served template: the specification's substitution
+# parameters (DATE = January 1 of a year in 1993-1997, DISCOUNT in
+# 0.02-0.09, QUANTITY in 24-25). The upper date is a plain date: an
+# interval stays pinned in the plan key, and no two statements would share
+# a plan
+SQL_Q6_AT = """
+      select sum(l_extendedprice * l_discount) as revenue
+      from lineitem
+      where l_shipdate >= date '{y}-01-01'
+        and l_shipdate < date '{y1}-01-01'
+        and l_discount between {dlo:.2f} and {dhi:.2f}
+        and l_quantity < {q}"""
+SERVE_CLIENTS = 16
+SERVE_STATEMENTS = 64
+
+
+def q6_params(rng, n: int) -> list[tuple]:
+    """n Q6 substitutions drawn from ``rng``: (year, discount in
+    hundredths, quantity)."""
+    return [(int(rng.integers(1993, 1998)), int(rng.integers(2, 10)),
+             int(rng.integers(24, 26))) for _ in range(n)]
+
+
+def q6_text(p: tuple) -> str:
+    y, d, q = p
+    return SQL_Q6_AT.format(y=y, y1=y + 1, dlo=(d - 1) / 100,
+                            dhi=(d + 1) / 100, q=q)
+
+
+def q6_references(li: dict, params: list) -> list[int]:
+    """Q6 at each substitution in numpy: the exact int64 sum of
+    extendedprice x discount (scale 4) over the filter. The shipdate
+    range selects each year's rows once; every substitution of that year
+    filters those."""
+    sd, disc, qty = li["l_shipdate"], li["l_discount"], li["l_quantity"]
+    years = {}
+    for y in sorted({p[0] for p in params}):
+        idx = np.nonzero((sd >= _days(f"{y}-01-01"))
+                         & (sd < _days(f"{y + 1}-01-01")))[0]
+        d = disc[idx].astype(np.int64)
+        years[y] = (d, qty[idx],
+                    li["l_extendedprice"][idx].astype(np.int64) * d)
+    out = []
+    for y, d0, q in params:
+        d, qy, prod = years[y]
+        m = (d >= d0 - 1) & (d <= d0 + 1) & (qy < q * 100)
+        out.append(int(np.sum(prod[m])))
+    return out
+
+
+def _check_q6(res, want: int, what: str) -> None:
+    got = res.raw[res._order[0]]
+    if len(got) != 1 or int(got[0]) != want:
+        raise AssertionError(f"{what}: Q6 {got.tolist()} != {want}")
+
+
+def _serve_run(torch, db, texts: list, refs: list, clients: int) -> dict:
+    """Every statement of ``texts`` from ``clients`` threads (statement i
+    on thread i % clients), each exact against refs[i]. -> throughput,
+    latencies, the batch counters' deltas and the width histogram."""
+    import threading
+
+    from greengage_tpu_torch.runtime.logger import counters, histograms
+
+    lat = [None] * len(texts)
+    errors = []
+    c0 = counters.snapshot()
+    h0 = histograms.snapshot().get("batch_width", {"counts": None})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    def client(k):
+        try:
+            for i in range(k, len(texts), clients):
+                t = time.perf_counter()
+                res = db.sql(texts[i])
+                lat[i] = time.perf_counter() - t
+                _check_q6(res, refs[i], f"served statement {i}")
+        except BaseException as e:   # re-raised on the main thread
+            errors.append(e)
+
+    ts = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    d = counters.since(c0, "batch_")
+    h1 = histograms.snapshot().get("batch_width")
+    widths = {}
+    if h1 is not None:
+        prev = h0["counts"] or [0] * len(h1["counts"])
+        widths = {int(b): c - p for b, c, p in
+                  zip(h1["buckets"], h1["counts"], prev) if c - p}
+    ms = sorted(x * 1e3 for x in lat)
+    return {"statements": len(texts), "clients": clients, "wall_s": wall,
+            "statements_per_s": len(texts) / wall,
+            "p50_ms": ms[len(ms) // 2],
+            "p99_ms": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+            "dispatches": d.get("batch_dispatch_total", 0),
+            "members": d.get("batch_members_total", 0),
+            "width_histogram": widths,
+            "batch_fallback_total": d.get("batch_fallback_total", 0),
+            "flush_full": d.get("batch_window_flush_full", 0),
+            "flush_timer": d.get("batch_window_flush_timer", 0),
+            "peak_bytes_over_base": torch.cuda.max_memory_allocated() - base}
+
+
+def phase_serve(torch, data, db, nseg: int, seed: int, name: str) -> int:
+    """Concurrent statements on the spill phase's Database: TPC-H Q6 as a
+    served template (64 statements from 16 client threads, batching off
+    and then on, every answer exact against numpy, no batch falling
+    back), a cancelled batch member whose batch-mates stay exact, Q3
+    past its statement timeout in staging, and four Q6s through a
+    resource queue of one slot. -> the fused kernel's launches in the
+    phase (batched programs never take it; Q6 and Q3 do not group by a
+    dense key)."""
+    import threading
+
+    from greengage_tpu_torch.exec.executor import effective_limit_bytes
+    from greengage_tpu_torch.ops import fused_agg
+    from greengage_tpu_torch.runtime.faultinject import faults
+    from greengage_tpu_torch.runtime.interrupt import (REGISTRY,
+                                                       StatementCancelled)
+    from greengage_tpu_torch.sql.parser import parse
+
+    li = data["lineitem"]
+    rng = np.random.default_rng(seed)
+    params = q6_params(rng, SERVE_STATEMENTS)
+    texts = [q6_text(p) for p in params]
+    t = time.perf_counter()
+    refs = q6_references(li, params)
+    out = {"phase": "serve", "nseg": nseg, "device": name,
+           "reference_s": time.perf_counter() - t,
+           "distinct_parameters": len(set(params))}
+    fused_agg.LAUNCHES = 0
+
+    # ---- batch width from the estimates: est_bytes x width per segment
+    # against the ceiling, widths a power of two, at most 16 -----------
+    _check_q6(db.sql(texts[0]), refs[0], "warm-up")
+    planned, consts, _outs, ek = db._cached_plan(parse(texts[0])[0])
+    est1 = db.executor.compile(planned, db.executor._with_params(consts),
+                               no_direct=False).est_bytes
+    limit = effective_limit_bytes(db.settings, db.executor.layout)
+    width = 16
+    while width > 1 and est1 * width > limit:
+        width //= 2
+    pv = [db._cached_plan(parse(x)[0])[1]["@params@"]
+          for x in texts[:width]]
+    comp, _tables, _c, _ = db.executor.prepare_batch(planned, consts, ek,
+                                                     pv)
+    del _tables, _c
+    out["admission"] = {
+        "est_bytes_per_member_segment": est1,
+        "est_bytes_x_bucket": comp.est_bytes, "bucket": comp.batch_width,
+        "ceiling_bytes": limit, "batch_max_width": width,
+        "est_bytes_x_bucket_x_nseg": comp.est_bytes * nseg}
+    del comp
+    db.sql(f"set batch_max_width = {width}")
+
+    # ---- what the traces cost: the device-memory sampler and a warm Q6
+    # with tracing on and off, in turns --------------------------------
+    from greengage_tpu_torch.exec.session import allocated_bytes
+    from greengage_tpu_torch.runtime import trace
+
+    def call_us(fn, n=2000):
+        fn()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t) / n * 1e6
+
+    idx = torch.cuda.current_device()
+    if allocated_bytes(idx) != torch.cuda.memory_allocated():
+        raise AssertionError("the trace's sampler reads another counter")
+    on_off = {"on": [], "off": []}
+    for i in range(22):
+        mode = ("on", "off")[(i + i // 2) % 2]
+        db.sql(f"set trace_enabled = {mode}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        db.sql(texts[0])
+        torch.cuda.synchronize()
+        on_off[mode].append((time.perf_counter() - t) * 1e3)
+    db.sql("set trace_enabled = on")
+    db.sql(texts[0])
+    spans = trace.TRACES.last().export()
+    out["trace_cost"] = {
+        "memory_allocated_us": call_us(torch.cuda.memory_allocated),
+        "sampler_us": call_us(lambda: allocated_bytes(idx)),
+        "q6_spans": len(spans),
+        "q6_sampled_spans": sum("hbm_bytes" in sp["args"] for sp in spans),
+        "q6_warm_ms_trace_on": statistics.median(on_off["on"]),
+        "q6_warm_ms_trace_off": statistics.median(on_off["off"])}
+
+    # ---- 64 statements, batching off, then on --------------------------
+    torch.cuda.empty_cache()
+    out["serial"] = _serve_run(torch, db, texts, refs, SERVE_CLIENTS)
+    db.sql("set batch_serving_enabled = on")
+    db.sql("set batch_window_ms = 2")
+    _check_q6(db.sql(texts[1]), refs[1], "batched warm-up")
+    torch.cuda.empty_cache()
+    out["batched"] = _serve_run(torch, db, texts, refs, SERVE_CLIENTS)
+    b = out["batched"]
+    if b["batch_fallback_total"] != 0:
+        raise AssertionError(f"batched Q6 fell back: {b}")
+    if b["members"] != SERVE_STATEMENTS or b["members"] <= b["dispatches"]:
+        raise AssertionError(f"no batching: {b}")
+    # one batch's host syncs: its flag read and its outputs' copy
+    syncs = sync_census(torch, lambda: db.executor.run_batch(
+        planned, consts, ek, pv))
+    out["batch_syncs"] = {"width": len(pv), "syncs": sum(syncs.values()),
+                          "sites": syncs}
+    db.sql("set batch_serving_enabled = off")
+    syncs = sync_census(torch, lambda: db.sql(texts[1]))
+    out["classic_statement_syncs"] = sum(syncs.values())
+    db.sql("set batch_serving_enabled = on")
+    out["batch_launches_fused"] = fused_agg.LAUNCHES
+    if fused_agg.LAUNCHES:
+        raise AssertionError("a batched program launched the fused kernel")
+
+    # ---- a cancelled member: its batch-mates stay exact ----------------
+    db.sql("set batch_window_ms = 300")
+    faults.inject("batch_dispatch", "sleep", sleep_s=1.0, occurrences=1)
+    got, errs = {}, {}
+
+    def member(i):
+        try:
+            # the marker leads the text: the activity listing keeps a
+            # statement's first 200 characters
+            got[i] = db.sql(f"-- member {i}\n" + texts[i])
+        except StatementCancelled as e:
+            errs[i] = e.cause
+
+    try:
+        plug = threading.Thread(target=member, args=(2,))
+        plug.start()
+        time.sleep(0.3)                # the plug's batch holds the device
+        ms = [threading.Thread(target=member, args=(i,)) for i in (3, 4, 5)]
+        for th in ms:
+            th.start()
+        time.sleep(0.3)                # the members wait in one window
+        victim = [r for r in REGISTRY.snapshot()
+                  if r["sql"].startswith("-- member 4")]
+        if not victim or not REGISTRY.cancel(victim[0]["id"], "user"):
+            raise AssertionError("member 4 was not in flight")
+        for th in ms + [plug]:
+            th.join(timeout=60)
+    finally:
+        faults.reset("batch_dispatch")
+    if errs != {4: "user"}:
+        raise AssertionError(f"cancelled member: {errs}")
+    for i in (2, 3, 5):
+        _check_q6(got[i], refs[i], f"member {i} beside a cancelled one")
+    out["cancel"] = {"cancelled": {str(k): v for k, v in errs.items()},
+                     "mates_exact": [2, 3, 5],
+                     "mates_batch_width": [got[i].stats.get("batch_width")
+                                           for i in (3, 5)]}
+    db.sql("set batch_serving_enabled = off")
+
+    # ---- Q3 past its statement timeout, in staging ---------------------
+    for table in ("customer", "orders", "lineitem"):
+        db.executor.invalidate_table(table)
+    db.sql("set scan_threads = 1")
+    db.sql("set statement_timeout_s = 1.0")
+    faults.inject("cancel_in_staging", "sleep", sleep_s=0.3,
+                  occurrences=-1)
+    t = time.perf_counter()
+    cause = None
+    try:
+        db.sql(SQL_Q3)
+    except StatementCancelled as e:
+        cause = e.cause
+    finally:
+        faults.reset("cancel_in_staging")
+        db.sql("set statement_timeout_s = 0")
+        db.sql("set scan_threads = 0")
+    took = time.perf_counter() - t
+    if cause != "timeout":
+        raise AssertionError(f"Q3 past its timeout ended with {cause!r}")
+    check_q3(db.sql(SQL_Q3), q3_reference(data))
+    out["timeout"] = {"cause": cause, "raised_after_s": took,
+                      "next_statement": "exact"}
+
+    # ---- the resource queue: four Q6s through one slot -----------------
+    db.sql("set resource_queue_active = 1")
+    q0 = db.resqueue.stats()
+    seen = {"active": 0, "waiting": 0}
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            st = db.resqueue.stats()
+            seen["active"] = max(seen["active"], st["active"])
+            seen["waiting"] = max(seen["waiting"], st["waiting"])
+            time.sleep(0.0005)
+
+    w = threading.Thread(target=watch)
+    w.start()
+    try:
+        res4 = _serve_run(torch, db, texts[:4], refs[:4], 4)
+    finally:
+        stop.set()
+        w.join()
+        db.sql("set resource_queue_active = 0")
+    q1_ = db.resqueue.stats()
+    admitted = q1_["admitted"] - q0["admitted"]
+    if admitted != 4 or seen["active"] != 1 or q1_["active"]:
+        raise AssertionError(f"resource queue: {q0} -> {q1_}, {seen}")
+    out["resource_queue"] = {"admitted": admitted,
+                             "max_active": seen["active"],
+                             "max_waiting": seen["waiting"],
+                             "wall_s": res4["wall_s"]}
+    launches = fused_agg.LAUNCHES
+    out.update(fused_dense_agg_launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               ok=True)
+    emit(out)
+    return launches
 
 
 def main() -> int:
@@ -1877,6 +2205,8 @@ def main() -> int:
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--nseg", type=int, default=8)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="draws the serve phase's Q6 substitutions")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm Q1 run (torch.profiler)")
     args = ap.parse_args()
@@ -1929,6 +2259,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     spill_launches, pass_form = phase_spill(torch, data, db, args.nseg,
                                             args.reps, name)
+    torch.cuda.empty_cache()
+    serve_launches = phase_serve(torch, data, db, args.nseg, args.seed,
+                                 name)
+    db.close()
     del data, db
     torch.cuda.empty_cache()
     # the spill phase is this slice's main path: the kernel's numbers are
@@ -1948,7 +2282,8 @@ def main() -> int:
                              "lineitem chunk)")
     kernel["launches"] = spill_launches
     kernel["launches_per_sql_rollup"] = rollup_launches
-    kernel["launches_by_path"] = {"sql_spill": spill_launches,
+    kernel["launches_by_path"] = {"sql_serve": serve_launches,
+                                  "sql_spill": spill_launches,
                                   "sql_windows": window_launches,
                                   "sql_q12": join_launches,
                                   "sql": sql_launches,

@@ -67,6 +67,37 @@ class Settings:
     # bounds the bound-plan LRU and the executor's per-statement cap hints
     plan_cache_params: bool = True
     plan_cache_size: int = 256
+    # statement lifecycle (runtime/interrupt.py): statement_timeout_s arms
+    # a deadline at statement start; the statement dies at its next
+    # cancellation point (boundary-granular — a launched program runs to
+    # its end). 0 disables
+    statement_timeout_s: float = 0.0
+    # statement traces (runtime/trace.py): per-phase spans for every
+    # statement, the newest trace_ring_size kept
+    trace_enabled: bool = True
+    trace_ring_size: int = 64
+    # resource queue (runtime/resqueue.py, the ResLockPortal analog):
+    # concurrent statements (0 = unlimited), a per-query estimated device
+    # memory ceiling (tightens effective_limit_bytes, so a capped query
+    # spills) and how long a statement may queue
+    resource_queue_active: int = 0
+    resource_queue_memory_mb: int = 0
+    resource_queue_timeout_s: float = 30.0
+    # resource groups (runtime/resgroup.py): a cap on concurrent statements
+    # over every group; when it binds, the group with the least weighted
+    # device time goes next
+    resource_group_global_active: int = 0
+    # batched serving (exec/batchserve.py): same-shape SELECTs that differ
+    # only in hoisted literals run as ONE batched program over their
+    # stacked parameter vectors. batch_window_ms bounds how long a member
+    # waits for batch-mates while the pipeline is busy (an idle pipeline
+    # flushes at once), batch_max_width flushes a full window and bounds
+    # the width (programs are built per pow2 width bucket), and past
+    # batch_queue_limit waiting members new statements run serially
+    batch_serving_enabled: bool = False
+    batch_window_ms: float = 2.0
+    batch_max_width: int = 16
+    batch_queue_limit: int = 512
 
     def set(self, name: str, value) -> None:
         if not hasattr(self, name) or name.startswith("_"):

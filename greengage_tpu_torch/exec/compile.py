@@ -38,10 +38,22 @@ two of that count, an exact spill chunk, an aux table's even split):
 buckets and the per-segment byte estimate (``est_bytes``, the admission
 check's input), so both equal the JAX package's without growing the
 staged buffers.
+
+A batched program (``batch_width`` W > 0, exec/batchserve.py) serves W
+same-shape statements that differ only in their hoisted literals: the
+same per-member body runs under ``torch.func.vmap`` over a ``[W, nparams]``
+int64 parameter tensor, each member seeing the classic ``[nparams]``
+"@params@rt" contract. Tables are closed over, not batched (every member
+scans the same staged columns); outputs, flags and metrics gain a leading
+member axis, and ``est_bytes`` counts W members. A batched program never
+takes the fused kernel (it has no vmap batching rule, as the Pallas
+kernel has none in the JAX package). The classic program (W = 0) is the
+body itself.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -167,6 +179,8 @@ class CompileResult:
     # holds each node's slice by id(node)
     est_bytes: int = 0
     node_est_bytes: dict = field(default_factory=dict)
+    # members of a batched program (its outputs' leading axis); 0 = classic
+    batch_width: int = 0
 
 
 class Compiler:
@@ -179,18 +193,23 @@ class Compiler:
     bounds violation in an earlier attempt); ``no_direct`` turns off the
     direct-addressed join, so every join builds the hash table. Compiling
     reads only the tables' shapes (``TableShape`` or ``TableData``): the
-    program takes the staged tables when it runs."""
+    program takes the staged tables when it runs. ``batch_width`` W > 0
+    builds the batched program over a ``[W, nparams]`` "@params@rt", with
+    every Aggregate off the fused kernel (module docstring)."""
 
     def __init__(self, layout: SegmentLayout, tables: dict,
                  settings: Settings | None = None, consts: dict | None = None,
                  dictionary=None, tier: int = 0,
                  cap_overrides: dict | None = None,
-                 pack_disabled: set | None = None, no_direct: bool = False):
+                 pack_disabled: set | None = None, no_direct: bool = False,
+                 batch_width: int = 0):
         self.layout = layout
         self.nseg = layout.nseg
         self.device = layout.device
         self.tables = tables
         self.s = settings or Settings()
+        self._host_consts = {k: v for k, v in (consts or {}).items()
+                             if not isinstance(v, torch.Tensor)}
         self.consts = {k: (to_device(v, self.device)
                            if isinstance(v, np.ndarray) else v)
                        for k, v in (consts or {}).items()}
@@ -199,6 +218,7 @@ class Compiler:
         self.cap_overrides = dict(cap_overrides or {})
         self.pack_disabled = set(pack_disabled or ())
         self.no_direct = no_direct
+        self.batch_width = int(batch_width)
         self.flags: list[str] = []
         self.metrics: list[str] = []
         self.flag_caps: dict = {}
@@ -278,16 +298,60 @@ class Compiler:
                 {n: fdict[n] for n in flag_names},
                 {n: mdict[n].to(torch.int64) for n in metric_names})
 
+        if self.batch_width:
+            program = self._batched(program)
         replicated = below.locus is not None and below.locus.kind in (
             LocusKind.SEGMENT_GENERAL, LocusKind.GENERAL)
-        est_bytes = self._estimate_bytes(below)
+        est_bytes = self._estimate_bytes(below) * max(self.batch_width, 1)
         return CompileResult(
             program=program, out_cols=out_cols, flag_names=flag_names,
             metric_names=metric_names, merge_keys=plan.merge_keys,
             host_limit=host_limit, replicated=replicated,
             flag_caps=dict(self.flag_caps), uses_fused=self.uses_fused,
             flag_packs=dict(self.flag_packs), est_bytes=est_bytes,
-            node_est_bytes=dict(self.node_est_bytes))
+            node_est_bytes=dict(self.node_est_bytes),
+            batch_width=self.batch_width)
+
+    def _batched(self, program):
+        """The classic program's body vmapped over the members' parameter
+        rows: "@params@rt" holds ``[W, nparams]`` when the program runs,
+        and each member's body reads its own row under the same key. The
+        tables are closed over, so every member reads the same staged
+        columns; every output gains a leading ``[W]`` axis."""
+
+        def batched(tables: dict[str, TableData]) -> ProgramOutput:
+            pstack = self.consts["@params@rt"]
+            assert pstack.dim() == 2 and pstack.shape[0] == \
+                self.batch_width, "a batched program needs [W, nparams]"
+
+            def one_member(prow):
+                self.consts["@params@rt"] = prow
+                o = program(tables)
+                return o.cols, o.valids, o.sel, o.flags, o.metrics
+
+            try:
+                out = torch.func.vmap(one_member)(pstack)
+            finally:
+                self.consts["@params@rt"] = pstack
+            return ProgramOutput(*out)
+
+        return batched
+
+    def host_copy(self, params=None) -> "Compiler":
+        """This compiler's key and dictionary state on the CPU, with
+        ``params`` (a member's int64 parameter row) as "@params@rt": the
+        batch demux finishes each member's Gather over the member's host
+        copy (exec/executor.demux_batch). Built from the host constants,
+        so it reads nothing back from the card."""
+        hc = copy.copy(self)
+        hc.layout = SegmentLayout(self.nseg, torch.device("cpu"))
+        hc.device = hc.layout.device
+        hc.consts = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray)
+                         else v) for k, v in self._host_consts.items()}
+        if params is not None:
+            hc.consts["@params@rt"] = torch.from_numpy(np.asarray(params))
+        hc._luts = {}
+        return hc
 
     def _nid(self, plan) -> int:
         """Stable preorder ordinal of a plan node (see compile())."""
@@ -817,7 +881,7 @@ class Compiler:
             S = prow.shape[0]
             out = torch.zeros((S, P + 1), dtype=torch.bool,
                               device=prow.device)
-            return out.scatter_(1, torch.where(keep, prow, P), True)[:, :P]
+            return out.scatter(1, torch.where(keep, prow, P), True)[:, :P]
 
         def run(ctx):
             lb = left_fn(ctx)
@@ -864,8 +928,8 @@ class Compiler:
                     # becomes the single null-extended row
                     keep = matched & mask
                     any_kept = any_per_probe(prow, present & keep, P)
-                    first = torch.ones_like(present)
-                    first[:, 1:] = prow[:, 1:] != prow[:, :-1]
+                    first = torch.cat([torch.ones_like(present[:, :1]),
+                                       prow[:, 1:] != prow[:, :-1]], dim=1)
                     null_row = present & first & ~any_kept.gather(1, prow)
                     out = out.with_sel(present & (keep | null_row))
                     for c in right_cols:
@@ -913,6 +977,7 @@ class Compiler:
         # of jobs (fused_agg.split_jobs)
         n_acc_est = sum(2 if a.func == "avg" else 1 for _, a in aggs) + 1
         fused_ok = (dense is not None and self.s.fused_dense_agg
+                    and not self.batch_width
                     and M <= self.s.fused_dense_max_domain
                     and n_acc_est * M * 128 * 8
                     <= self.s.fused_dense_max_scratch_mb << 20
@@ -1202,16 +1267,17 @@ class Compiler:
     def _eq_prev(self, ev: Evaluator, exprs, shape, dev):
         """bool [nseg, cap]: row i has the same values of ``exprs`` as row
         i-1 (two NULLs are equal); False at row 0."""
-        eq = torch.ones(shape, dtype=torch.bool, device=dev)
-        eq[:, 0] = False
+        rest = torch.ones((shape[0], shape[1] - 1), dtype=torch.bool,
+                          device=dev)
         for e in exprs:
             v, valid = ev.column(e)
             same = v[:, 1:] == v[:, :-1]
             if valid is not None:
                 same = (same & valid[:, 1:] & valid[:, :-1]) | (
                     ~valid[:, 1:] & ~valid[:, :-1])
-            eq[:, 1:] &= same
-        return eq
+            rest = rest & same
+        return torch.cat([torch.zeros((shape[0], 1), dtype=torch.bool,
+                                      device=dev), rest], dim=1)
 
     @staticmethod
     def _live_pair(sel_sorted):
@@ -1456,7 +1522,7 @@ class Compiler:
             eq_prior = torch.where(prior, eq, 0).sum(dim=0)
             del left, right
             # local tie position (stable by original row order)
-            pos = torch.empty_like(sorted_rid).scatter_(1, sorted_rid, rid)
+            pos = torch.empty_like(sorted_rid).scatter(1, sorted_rid, rid)
             first_eq = torch.minimum(
                 torch.searchsorted(sorted_enc, enc_d), live_n[:, None])
             local_eq_before = pos - first_eq
@@ -1521,10 +1587,10 @@ class Compiler:
                     # segment; every other row stores to the spare slot
                     npos = torch.where(isnull_cls, local_null_idx, cap)
                     g_nv = torch.zeros((nseg, cap + 1), dtype=vals.dtype,
-                                       device=dev).scatter_(
+                                       device=dev).scatter(
                         1, npos, vals)[:, :cap].reshape(-1)
                     g_nvv = torch.zeros((nseg, cap + 1), dtype=torch.bool,
-                                        device=dev).scatter_(
+                                        device=dev).scatter(
                         1, npos, va)[:, :cap].reshape(-1)
 
                 def lookup(p):

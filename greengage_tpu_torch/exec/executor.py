@@ -35,6 +35,25 @@ A ``torch.OutOfMemoryError`` anywhere in staging or the program demotes
 the statement to the spill passes once (``oom_spill_retry``); a second
 one, or one inside a pass, raises ``OutOfDeviceMemory``.
 
+Cancellation points (runtime/interrupt.py) sit where the JAX executor
+has them: each retry-tier boundary, right before the program launches
+(with the ``cancel_before_dispatch`` fault point), between per-table
+assemblies and in every staging unit (``cancel_in_staging``; pool threads
+check the statement's own context). A launched program is never aborted:
+the statement dies at its next point. The ``device_oom`` fault point
+fakes an allocator failure at launch. The stage cache and the cap hints
+are shared by every thread's statements and locked.
+
+The batch half (``prepare_batch`` / ``dispatch_batch`` / ``demux_batch``,
+``run_batch``) runs a window of same-shape statements as one batched
+program (exec/compile.py ``batch_width``) for exec/batchserve.py: the
+width bucketed to a power of two, members padded with the last one's
+parameters, admission of ``est_bytes`` (W members) against
+``effective_limit_bytes``, one flag read and one copy of every member's
+outputs to the host, and each member's Gather finished there. Anything
+that keeps the window from running as one program raises
+``BatchFallback`` and every member runs the classic path.
+
 What admission charges: the estimate counts every scan node's batch at
 its capacity, so the columns the stage cache already holds for the
 statement are charged as the statement's own (they are resident while it
@@ -50,6 +69,7 @@ from __future__ import annotations
 
 import shutil
 import tempfile
+import threading
 import time
 import weakref
 from collections import OrderedDict
@@ -67,7 +87,11 @@ from greengage_tpu_torch.exec.compile import (
 from greengage_tpu_torch.ops import sort as sort_ops
 from greengage_tpu_torch.ops.batch import Batch
 from greengage_tpu_torch.planner.logical import Plan, Scan
+from greengage_tpu_torch.runtime import interrupt
+from greengage_tpu_torch.runtime import trace as _trace
+from greengage_tpu_torch.runtime.faultinject import faults
 from greengage_tpu_torch.runtime.logger import counters
+from greengage_tpu_torch.runtime.resgroup import current_memory_limit_mb
 
 
 class QueryError(RuntimeError):
@@ -80,6 +104,14 @@ class AdmissionError(QueryError):
     """The estimate passed the memory ceiling where the statement may not
     spill (inside a spill pass): the signal the spill merge keys its
     bucketed re-merge on."""
+
+
+class BatchFallback(Exception):
+    """A batched-serving window cannot run as one program (admission
+    ceiling, overflow flags, a shape the batched program cannot build):
+    every member re-runs serially through the classic path, which owns
+    retries and spill. Never surfaces to a client — it only routes
+    execution."""
 
 
 class OutOfDeviceMemory(QueryError):
@@ -100,14 +132,20 @@ def segments_per_device(layout) -> int:
 
 
 def effective_limit_bytes(settings, layout=None) -> int:
-    """Per-segment device-memory ceiling; 0 = unlimited. On a card all the
-    segments share, the tighter of ``vmem_protect_limit_mb`` (0 = no
-    setting) and the card's memory over the segments it holds (the JAX
-    executor scales the same way by its segments per device), so a
-    statement demoted after an out-of-memory error sizes its passes to
-    the card. The resource-queue and group caps the JAX package also
-    applies come with ROADMAP Queue 1 item 7."""
+    """Per-segment device-memory ceiling; 0 = unlimited. The tighter of
+    ``vmem_protect_limit_mb``, the resource queue's
+    ``resource_queue_memory_mb`` and the calling thread's resource-group
+    cap (runtime/resgroup.current_memory_limit_mb), each 0 = none, as in
+    the JAX executor: a capped statement spills instead of failing. On a
+    card all the segments share, also the card's memory over the
+    segments it holds (the JAX executor scales the same way by its
+    segments per device), so a statement demoted after an out-of-memory
+    error sizes its passes to the card."""
     limit = int(settings.vmem_protect_limit_mb) << 20
+    for cap in (int(settings.resource_queue_memory_mb) << 20,
+                current_memory_limit_mb() << 20):
+        if cap and (not limit or cap < limit):
+            limit = cap
     if layout is not None and layout.device.type == "cuda":
         card = torch.cuda.get_device_properties(layout.device).total_memory \
             // segments_per_device(layout)
@@ -306,15 +344,34 @@ def run_tiers(plan, tables: dict, layout, settings,
     while tier < settings.motion_retry_tiers \
             and attempts < settings.motion_retry_tiers + 4:
         attempts += 1
+        # retry-tier boundary: a flag set while the previous attempt ran
+        # (cancel, statement timeout) ends the statement here
+        interrupt.check_interrupts()
         compiler = Compiler(layout, tables, settings, consts, dictionary,
                             tier=tier, cap_overrides=cap_overrides,
                             pack_disabled=pack_disabled, no_direct=no_direct)
-        comp = compiler.compile(plan)
+        with _trace.span("compile", cat="exec", tier=tier):
+            comp = compiler.compile(plan)
         if admit is not None:
             admit(comp)
-        out = comp.program(stage(comp) if stage is not None else tables)
-        _, _, sel = _gather_rows(comp, out)
-        host = _flag_tensor(out, comp, sel.sum()).cpu().numpy()
+        staged = stage(comp) if stage is not None else tables
+        # the last cancellation point before the launch: once the
+        # program is on the device it runs to its end
+        faults.check("cancel_before_dispatch")
+        interrupt.check_interrupts()
+        # the span ends at the host's read of the flags, which waits for
+        # the program
+        with _trace.span("dispatch", cat="device", tier=tier,
+                         est_bytes=comp.est_bytes):
+            if faults.check("device_oom"):
+                # a faked allocator failure ('skip'): the OOM demotion
+                # without exhausting the card
+                raise torch.OutOfMemoryError(
+                    f"out of memory while allocating {comp.est_bytes} "
+                    "bytes per segment (fault injected: device_oom)")
+            out = comp.program(staged)
+            _, _, sel = _gather_rows(comp, out)
+            host = _flag_tensor(out, comp, sel.sum()).cpu().numpy()
         nflags = len(comp.flag_names)
         flags = {n: bool(v) for n, v in zip(comp.flag_names, host[:nflags])}
         live = int(host[nflags])
@@ -329,8 +386,9 @@ def run_tiers(plan, tables: dict, layout, settings,
                 "(PK-FK) hash joins are supported in this version")
         overflow = [n for n, v in flags.items() if v]
         if not overflow:
-            res = present(comp, gather(comp, out, compiler, live), flags,
-                          metrics, compiler, raw=raw)
+            with _trace.span("fetch", cat="device", rows=live):
+                res = present(comp, gather(comp, out, compiler, live),
+                              flags, metrics, compiler, raw=raw)
             res.wall_ms = (time.perf_counter() - t0) * 1e3
             res.cap_needs = {nid: int(metrics[m].max())
                              for nid, m in comp.flag_caps.values()
@@ -398,6 +456,10 @@ class Executor:
         # exact counts of the statement's last run (pow2-bucketed), LRU
         # within plan_cache_size
         self._cap_hints: OrderedDict = OrderedDict()
+        # the stage cache and the cap hints are shared by every thread's
+        # statements (and the batch server's stager): their reads and
+        # writes, and a table's cold staging, run under this lock
+        self._cache_mu = threading.RLock()
         self._spill_dir: str | None = None
 
     # ---- lifetime ------------------------------------------------------
@@ -411,19 +473,22 @@ class Executor:
         return self._spill_dir
 
     def close(self) -> None:
-        self._stage_cache.clear()
-        self._cap_hints.clear()
+        with self._cache_mu:
+            self._stage_cache.clear()
+            self._cap_hints.clear()
         if self._spill_dir is not None:
             self._spill_dir_rm()
             self._spill_dir = None
 
     def invalidate_table(self, table: str) -> None:
-        for k in [k for k in self._stage_cache if k[0] == table]:
-            del self._stage_cache[k]
+        with self._cache_mu:
+            for k in [k for k in self._stage_cache if k[0] == table]:
+                del self._stage_cache[k]
 
     def forget(self, cache_key) -> None:
         """Drop a statement's cap hints (its bound plan left the cache)."""
-        self._cap_hints.pop(cache_key, None)
+        with self._cache_mu:
+            self._cap_hints.pop(cache_key, None)
 
     def _dictionary(self, ref):
         return self.store.dictionary(*ref).values
@@ -443,16 +508,17 @@ class Executor:
         t0 = time.perf_counter()
         snapshot = self.store.manifest.snapshot()
         version = snapshot.get("version", 0)
-        # staged copies of older versions are unreachable: free them
-        for k in [k for k in self._stage_cache if k[3] != version]:
-            del self._stage_cache[k]
         overrides = scan_cap_override or {}
         ranges = row_ranges or {}
         aux = aux_tables or {}
         shapes = self.table_shapes(plan, snapshot, overrides, aux)
-        hints = dict(self._cap_hints.get(cache_key) or {})
-        if hints:
-            self._cap_hints.move_to_end(cache_key)
+        with self._cache_mu:
+            # staged copies of older versions are unreachable: free them
+            for k in [k for k in self._stage_cache if k[3] != version]:
+                del self._stage_cache[k]
+            hints = dict(self._cap_hints.get(cache_key) or {})
+            if hints:
+                self._cap_hints.move_to_end(cache_key)
         consts = self._with_params(consts)
         limit = effective_limit_bytes(self.settings, self.layout)
         last: dict = {}
@@ -470,8 +536,9 @@ class Executor:
 
         def stage(comp):
             t = time.perf_counter()
-            tables = self._stage(plan, snapshot, shapes, ranges, aux,
-                                 prefetcher)
+            with _trace.span("stage", cat="stage", tables=len(shapes)):
+                tables = self._stage(plan, snapshot, shapes, ranges, aux,
+                                     prefetcher)
             stage_s[0] += time.perf_counter() - t
             return tables
 
@@ -532,15 +599,16 @@ class Executor:
                         self._dictionary, no_direct=no_direct).compile(plan)
 
     def _record_hints(self, cache_key, needs: dict) -> None:
-        rec = self._cap_hints.setdefault(cache_key, {})
-        self._cap_hints.move_to_end(cache_key)
-        for nid, need in needs.items():
-            # pow2 bucket: a small drift in the data re-records the same
-            # hint
-            rec[nid] = _pow2(need + max(need // 16, 64))
-        bound = max(int(self.settings.plan_cache_size), 1)
-        while len(self._cap_hints) > bound:
-            self._cap_hints.popitem(last=False)
+        with self._cache_mu:
+            rec = self._cap_hints.setdefault(cache_key, {})
+            self._cap_hints.move_to_end(cache_key)
+            for nid, need in needs.items():
+                # pow2 bucket: a small drift in the data re-records the
+                # same hint
+                rec[nid] = _pow2(need + max(need // 16, 64))
+            bound = max(int(self.settings.plan_cache_size), 1)
+            while len(self._cap_hints) > bound:
+                self._cap_hints.popitem(last=False)
 
     def _with_params(self, consts: dict) -> dict:
         """The statement's hoisted literal values (sql/paramize.py) as one
@@ -551,12 +619,164 @@ class Executor:
             return consts
         host = staging.host_buffer(len(pvec.values), np.int64,
                                    self.layout.device)
-        arr = host.numpy()
+        self._param_values(pvec, host.numpy())
+        out = dict(consts)
+        out["@params@rt"] = host.to(self.layout.device, non_blocking=True)
+        return out
+
+    @staticmethod
+    def _param_values(pvec, arr) -> None:
+        """A parameter vector's values into an int64 row (float64 values
+        by bit pattern), as the program reads "@params@rt"."""
         for i, (v, t) in enumerate(zip(pvec.values, pvec.types)):
             arr[i] = (np.float64(v).view(np.int64)
                       if t.kind is T.Kind.FLOAT64 else int(v))
-        out = dict(consts)
-        out["@params@rt"] = host.to(self.layout.device, non_blocking=True)
+
+    # ---- batched serving (exec/batchserve.py) ---------------------------
+    # One program serves a whole admission window of same-shape
+    # statements: their hoisted parameter vectors stack along a leading
+    # member axis and the batched program (compile.py batch_width) runs
+    # once over the shared staged tables. Split into prepare (compile,
+    # admit, stage) and dispatch (device) halves so the serving pipeline
+    # stages batch k+1 while batch k runs.
+
+    def prepare_batch(self, plan, consts, cache_key, pvec_rows):
+        """Build the width-bucketed batched program, admit it and stage
+        its (shared) tables and the stacked parameters. -> (comp, tables,
+        compiler, compiled); ``compiled`` is always True: the port keeps no
+        program cache, so every batch compiles (a closure over the plan,
+        no device work). ``compiler.host_params`` keeps the members'
+        parameter rows on the host for the demux. Raises BatchFallback
+        when the batch cannot run as one program."""
+        width = len(pvec_rows)
+        bucket = _pow2(max(width, 1))
+        snapshot = self.store.manifest.snapshot()
+        with self._cache_mu:
+            hints = dict(self._cap_hints.get(cache_key) or {})
+        shapes = self.table_shapes(plan, snapshot)
+        # members padded to the bucket with the last one's values
+        padded = list(pvec_rows) + [pvec_rows[-1]] * (bucket - width)
+        nparams = len(padded[0].values)
+        if not nparams:
+            raise BatchFallback("a batched program needs parameters")
+        host = staging.host_buffer(bucket * nparams, np.int64,
+                                   self.layout.device)
+        rows = host.numpy().reshape(bucket, nparams)
+        for m, pv in enumerate(padded):
+            self._param_values(pv, rows[m])
+        bconsts = dict(consts)
+        bconsts["@params@rt"] = host.view(bucket, nparams).to(
+            self.layout.device, non_blocking=True)
+        # batched programs never take the fused kernel: it has no vmap
+        # batching rule (nor has the Pallas kernel in the JAX package)
+        compiler = Compiler(self.layout, shapes, self.settings, bconsts,
+                            self._dictionary, tier=0, cap_overrides=hints,
+                            batch_width=bucket)
+        try:
+            with _trace.span("compile", cat="exec", batch_width=bucket):
+                comp = compiler.compile(plan)
+        except (NotImplementedError, TypeError, ValueError) as e:
+            raise BatchFallback(f"batched program not built: {e}") from None
+        compiler.host_params = rows
+        # admission: est_bytes already counts the bucket's members
+        limit = effective_limit_bytes(self.settings, self.layout)
+        if limit and comp.est_bytes > limit:
+            raise BatchFallback(
+                f"batched program would hold ~{comp.est_bytes >> 20} MB "
+                f"per segment at width {bucket}, above the "
+                f"{limit >> 20} MB ceiling")
+        # staging as for one statement; the port's in-memory store prunes
+        # no blocks by value, so no member's parameters can starve
+        # another's rows (the JAX package drops its parameter-valued
+        # prune predicates here)
+        with _trace.span("stage", cat="stage", tables=len(shapes),
+                         batch_width=width, batch_bucket=bucket):
+            tables = self._stage(plan, snapshot, shapes, {}, {}, None)
+        return comp, tables, compiler, True
+
+    def dispatch_batch(self, comp: CompileResult, tables) -> dict:
+        """Run a prepared batched program and copy every member's outputs,
+        flags and metrics to the host: one wait for the card. The serving
+        pipeline's device stage — it runs on the dispatcher thread with NO
+        statement context, so a member's cancellation never aborts its
+        batch-mates (members are masked at demux). -> host arrays by name:
+        ("c", id), ("v", id), "sel", ("f", flag), ("m", metric)."""
+        with _trace.span("dispatch", cat="device",
+                         batch_width=comp.batch_width,
+                         est_bytes=comp.est_bytes) as sp:
+            faults.check("batch_dispatch")
+            err = None
+            try:
+                out = comp.program(tables)
+            except RuntimeError as e:
+                # a shape whose operators the batched program cannot run
+                # (vmap refuses the op), or the card's allocator: only
+                # the message leaves this block (an OOM's frames hold
+                # the attempt's tensors)
+                err = f"{type(e).__name__}: {e}"
+            if err is not None:
+                raise BatchFallback(f"batched program failed: {err}")
+            tensors = {"sel": out.sel}
+            tensors.update({("c", k): v for k, v in out.cols.items()})
+            tensors.update({("v", k): v for k, v in out.valids.items()})
+            tensors.update({("f", k): v.reshape(-1) for k, v in
+                            out.flags.items()})
+            tensors.update({("m", k): v for k, v in out.metrics.items()})
+            del out
+            host = _to_host(tensors)
+            _trace.annotate(sp, bytes=int(sum(a.nbytes
+                                              for a in host.values())))
+        return host
+
+    def batch_overflowed(self, comp: CompileResult, host) -> list[str]:
+        """Flag names any member raised — capacity overflow, packing
+        bounds, duplicate join keys. A batched program never retries in
+        place (members' capacity needs differ); any flag sends every
+        member down the classic path, whose tiers handle it."""
+        return [n for n in comp.flag_names if host[("f", n)].any()]
+
+    def demux_batch(self, comp: CompileResult, host, member: int,
+                    compiler) -> Result:
+        """One member's Result from a batch's host copy: its slice along
+        the member axis, finished as a classic statement's Gather is
+        (compaction, merge keys, LIMIT/OFFSET, decode), on the host."""
+        with _trace.span("finalize", cat="host", member=member):
+            hc = compiler.host_copy(compiler.host_params[member])
+            sel = torch.from_numpy(host["sel"][member])
+            out = ProgramOutput(
+                {c.id: torch.from_numpy(host[("c", c.id)][member])
+                 for c in comp.out_cols},
+                {c.id: torch.from_numpy(host[("v", c.id)][member])
+                 for c in comp.out_cols if ("v", c.id) in host},
+                sel, {}, {})
+            _, _, gsel = _gather_rows(comp, out)
+            live = int(gsel.sum())
+            flags = {n: bool(host[("f", n)][member])
+                     for n in comp.flag_names}
+            metrics = {n: host[("m", n)][member] for n in comp.metric_names}
+            res = present(comp, gather(comp, out, hc, live), flags, metrics,
+                          hc)
+        res.stats = {"mem": {"est_bytes": int(comp.est_bytes)}}
+        return res
+
+    def run_batch(self, plan, consts, cache_key, pvec_rows) -> list[Result]:
+        """Prepare, dispatch and demux one batch on the calling thread (the
+        test surface; the serving pipeline calls the halves from its own
+        threads). Raises BatchFallback when the batch must run serially."""
+        comp, tables, compiler, compiled = self.prepare_batch(
+            plan, consts, cache_key, pvec_rows)
+        host = self.dispatch_batch(comp, tables)
+        over = self.batch_overflowed(comp, host)
+        if over:
+            raise BatchFallback(f"overflow flags {over} at width "
+                                f"{len(pvec_rows)}")
+        out = []
+        for m in range(len(pvec_rows)):
+            res = self.demux_batch(comp, host, m, compiler)
+            res.stats.update(batched=True, batch_width=len(pvec_rows),
+                             batch_bucket=comp.batch_width,
+                             compiled=compiled, segments=self.nseg)
+            out.append(res)
         return out
 
     def _mem_stats(self, est_bytes: int) -> dict:
@@ -688,24 +908,36 @@ class Executor:
         version = snapshot.get("version", 0)
         out = {}
         for table, want in self.staged_columns(plan, snapshot, aux).items():
-            shape = shapes[table]
-            cap = shape.capacity
-            if table in aux:
-                t = self._upload(self._aux_buffers(want, cap, aux[table]),
-                                 cap)
-            elif table in ranges:
-                rng = ranges[table]
-                bufs = (prefetcher.take(table, rng)
-                        if prefetcher is not None else None)
-                if bufs is None:
-                    bufs = self.host_buffers(table, want, cap, snapshot, rng)
-                if prefetcher is not None:
-                    prefetcher.kick()
-                t = self._upload(bufs, cap)
-            else:
+            interrupt.check_interrupts()   # between per-table assemblies
+            with _trace.span("stage:" + table, cat="stage"):
+                out[table] = self._stage_table(
+                    table, want, shapes[table], version, snapshot, ranges,
+                    aux, prefetcher)
+        return out
+
+    def _stage_table(self, table, want, shape, version, snapshot, ranges,
+                     aux, prefetcher) -> TableData:
+        """One table's staged columns: a whole table from the stage cache
+        (a cold one staged once, under the cache lock, however many
+        statements want it at once), or a spill pass's range or an aux
+        table staged apart from it."""
+        cap = shape.capacity
+        if table in aux:
+            t = self._upload(self._aux_buffers(want, cap, aux[table]), cap)
+        elif table in ranges:
+            rng = ranges[table]
+            bufs = (prefetcher.take(table, rng)
+                    if prefetcher is not None else None)
+            if bufs is None:
+                bufs = self.host_buffers(table, want, cap, snapshot, rng)
+            if prefetcher is not None:
+                prefetcher.kick()
+            t = self._upload(bufs, cap)
+        else:
+            with self._cache_mu:
                 missing = [c for c in want + ["@present"]
-                           if (table, c, cap, version) not in
-                           self._stage_cache]
+                           if (table, c, cap, version)
+                           not in self._stage_cache]
                 if missing:
                     staged = self._upload(self.host_buffers(
                         table, [c for c in missing if c != "@present"], cap,
@@ -715,10 +947,8 @@ class Executor:
                          for c, v in staged.items() if c in missing})
                 t = {c: self._stage_cache[(table, c, cap, version)]
                      for c in want + ["@present"]}
-            out[table] = TableData(table, {c: t[c] for c in want},
-                                   t["@present"],
-                                   ref_capacity=shape.ref_capacity)
-        return out
+        return TableData(table, {c: t[c] for c in want}, t["@present"],
+                         ref_capacity=shape.ref_capacity)
 
     def host_buffers(self, table, names, cap, snapshot, rng) -> dict:
         """Read ``names`` of every segment from the store (rows [lo, hi) of
@@ -729,6 +959,11 @@ class Executor:
         dev = self.layout.device
         storage = sorted({c[len(VALID_PREFIX):] if c.startswith(VALID_PREFIX)
                           else c for c in names})
+        # the statement's interrupt context, captured HERE because the read
+        # units run on pool threads (REGISTRY.current() is per thread):
+        # each unit is a cancellation point, and the raise travels back to
+        # the statement's thread through the unit's result
+        stmt_ctx = interrupt.REGISTRY.current()
         dtypes = {"@present": np.dtype(bool)}
         for c in names:
             dtypes[c] = (np.dtype(bool) if c.startswith(VALID_PREFIX)
@@ -738,6 +973,9 @@ class Executor:
         views = {c: b.numpy() for c, b in bufs.items()}
 
         def unit(seg):
+            faults.check("cancel_in_staging", segment=seg)
+            if stmt_ctx is not None:
+                stmt_ctx.check()
             cols, valids, n = self.store.read_segment(table, seg, storage,
                                                       snapshot)
             lo = 0

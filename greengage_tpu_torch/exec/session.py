@@ -10,6 +10,19 @@ each statement through the same steps as the JAX session's ``_sql_inner``
 is kept per literal-stripped statement shape and store version, so a
 repeat skips bind and plan.
 
+One Database serves many threads at once, as the JAX session does (one
+thread per connection): each statement's plan-cache outcome is kept per
+thread, and the bound-plan LRU (and the executor's caches) are locked.
+Every statement registers a ``StatementContext`` (runtime/interrupt.py:
+``statement_timeout_s``, cancel by id through ``REGISTRY.cancel``) and a
+trace (runtime/trace.py) and waits for its resource group's and the
+resource queue's admission (runtime/resgroup.py, runtime/resqueue.py)
+before it runs. With ``batch_serving_enabled`` a parameterised SELECT
+joins its shape's admission window in the batch server
+(exec/batchserve.py) and runs as one member of a batched program; a batch
+that cannot run as one program sends its members back to the classic
+path.
+
 The statements handled: SELECT (joins, subqueries, window functions,
 UNION [ALL], GROUPING SETS / ROLLUP / CUBE, and SELECT without FROM — a
 constant target list on the host, anything else through the ConstRel
@@ -23,8 +36,11 @@ never a wrong answer.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import OrderedDict
+from contextlib import ExitStack
+from functools import partial
 
 import numpy as np
 import torch
@@ -40,7 +56,13 @@ from greengage_tpu_torch.exec.executor import (Executor, QueryError,
 from greengage_tpu_torch.parallel.mesh import make_layout
 from greengage_tpu_torch.planner import cost as _cost
 from greengage_tpu_torch.planner import plan_query
-from greengage_tpu_torch.runtime.logger import counters
+from greengage_tpu_torch.runtime import trace as _trace
+from greengage_tpu_torch.runtime.interrupt import REGISTRY as _INTERRUPTS
+from greengage_tpu_torch.runtime.interrupt import StatementCancelled
+from greengage_tpu_torch.runtime.logger import counters, histograms
+from greengage_tpu_torch.runtime.resgroup import ResourceGroupManager
+from greengage_tpu_torch.runtime.resqueue import ResourceQueue
+from greengage_tpu_torch.runtime.trace import TRACES as _TRACES
 from greengage_tpu_torch.sql import ast as A
 from greengage_tpu_torch.sql.binder import (Binder, Scope, _ast_name,
                                            _contains_agg, type_from_name)
@@ -64,8 +86,14 @@ _LATER = {
     A.CreateIndexStmt: "indexes: ROADMAP Queue 1 item 1a (durable storage)",
     A.DropIndexStmt: "indexes: ROADMAP Queue 1 item 1a (durable storage)",
     A.CreateExtensionStmt: "extensions: ROADMAP Queue 1 item 7",
-    A.ResourceGroupStmt: "resource groups: ROADMAP Queue 1 item 7",
 }
+
+
+def allocated_bytes(index: int) -> int:
+    """The caching allocator's allocated bytes on card ``index`` (what
+    ``torch.cuda.memory_allocated`` returns)."""
+    return int(torch._C._cuda_memoryStats(index)["allocated_bytes"]["all"]
+               ["current"])
 
 
 class Database:
@@ -97,12 +125,38 @@ class Database:
         self.executor = Executor(self.catalog, self.store, self.layout,
                                  self.settings)
         # the bound-plan LRU (_cached_plan): (statement signature, store
-        # version) -> (planned, consts, outs, exec key, param types)
+        # version) -> (planned, consts, outs, exec key, param types). Its
+        # get/move/insert/evict and the fallback set run under _cache_mu:
+        # statements of many threads share them
         self._select_cache: OrderedDict = OrderedDict()
+        self._cache_mu = threading.Lock()
         # signatures whose parameterized form the binder refused: they
         # plan value-pinned straight away
         self._paramize_fallback: set = set()
-        self._plan_cache_info: dict = {}
+        # each thread's last _cached_plan outcome (the _plan_cache_info
+        # property)
+        self._pc_info_local = threading.local()
+        # admission (_admission): the resource queue and the resource
+        # groups. Groups live in memory with the catalog: persistence
+        # across a reopen waits for durable storage (ROADMAP Queue 1 item
+        # 1a)
+        self.resqueue = ResourceQueue(self.settings)
+        self.resgroups = ResourceGroupManager(self.settings)
+        # the batch server (exec/batchserve.py): made on the first
+        # batch-eligible statement, so its two threads exist only while
+        # batch_serving_enabled is on
+        self._batch_server = None
+        self._batch_server_mu = threading.Lock()
+        if self.device.type == "cuda":
+            # spans carry the card's allocated bytes at their ends: the
+            # counter torch.cuda.memory_allocated reads, taken from the
+            # allocator's stats without the flattening of every other
+            # stat that costs memory_allocated ~7x as much (chip_smoke's
+            # serve phase times both)
+            idx = self.device.index
+            _trace.set_mem_sampler(partial(
+                allocated_bytes,
+                torch.cuda.current_device() if idx is None else idx))
 
     def _motion_overlap_factor(self) -> float:
         """Redistribute overlap credit from motion_pipeline_buckets
@@ -117,9 +171,44 @@ class Database:
     # ------------------------------------------------------------------
     def sql(self, text: str):
         """Execute one or more statements; returns the last statement's
-        Result (or a status string for DDL)."""
+        Result (or a status string for DDL).
+
+        Every call registers a StatementContext in the process-wide
+        interrupt registry (runtime/interrupt.py): ``REGISTRY.cancel``
+        and ``statement_timeout_s`` set its flag, and the statement dies
+        at its next cancellation point with a typed cause, counted once
+        in ``statements_cancelled_<cause>``. Its trace (runtime/trace.py)
+        has the statement's id; nested calls on the same thread share
+        the outermost statement's context and trace."""
+        ctx, _outer = _INTERRUPTS.enter(
+            text, timeout_s=float(self.settings.statement_timeout_s))
+        tr, t_outer = _TRACES.enter(
+            ctx.statement_id, text,
+            enabled=bool(self.settings.trace_enabled),
+            ring_size=int(self.settings.trace_ring_size))
+        t0 = time.monotonic()
+        root = (tr.begin("statement", cat="statement")
+                if tr is not None and t_outer else None)
+        try:
+            return self._sql_inner(text)
+        except StatementCancelled as e:
+            if not ctx.counted:
+                ctx.counted = True
+                counters.inc(f"statements_cancelled_{e.cause}")
+            raise
+        finally:
+            if root is not None:
+                tr.end(root)
+            if t_outer:
+                histograms.observe("statement_ms",
+                                   (time.monotonic() - t0) * 1e3)
+            _TRACES.exit(tr)
+            _INTERRUPTS.exit(ctx)
+
+    def _sql_inner(self, text: str):
         t0 = time.perf_counter()
-        stmts = parse(text)
+        with _trace.span("parse", cat="front"):
+            stmts = parse(text)
         parse_ms = (time.perf_counter() - t0) * 1e3
         out = None
         for stmt in stmts:
@@ -146,9 +235,20 @@ class Database:
         if isinstance(stmt, A.AnalyzeStmt):
             return self._analyze(stmt.table)
         if isinstance(stmt, A.ShowStmt):
+            if stmt.what == "resource_group":
+                return self.resgroups.current_group()
             return str(self._setting(self.settings.show, stmt.what))
         if isinstance(stmt, A.SetStmt):
+            if stmt.name == "resource_group":
+                # per-THREAD binding (one connection = one thread), like
+                # SET ROLE picking the backend's resource group
+                self.resgroups.set_group(str(stmt.value))
+                return "SET"
             self._setting(self.settings.set, stmt.name, stmt.value)
+            if stmt.name.startswith("resource_"):
+                # wake blocked waiters: a raised or disabled cap admits
+                # them now, not at their timeout
+                self.resgroups.kick()
             if stmt.name == "motion_pipeline_buckets":
                 _cost.set_motion_overlap(self._motion_overlap_factor())
             elif stmt.name == "spill_dir" and self.settings.spill_dir:
@@ -158,8 +258,11 @@ class Database:
 
                 workfile.sweep_orphans(self.settings.spill_dir)
             elif stmt.name == "plan_cache_size":
-                self._trim_plan_cache()
+                with self._cache_mu:
+                    self._trim_plan_cache()
             return "SET"
+        if isinstance(stmt, A.ResourceGroupStmt):
+            return self._resource_group(stmt)
         later = _LATER.get(type(stmt))
         if later is not None:
             raise SqlError(f"{type(stmt).__name__} is not ported yet ({later})")
@@ -243,28 +346,127 @@ class Database:
                 pass   # the host path's residual rejections (non-constant
                 # text expressions) go on to the ConstRel device path
         t0 = time.perf_counter()
-        planned, consts, _outs, exec_key = self._cached_plan(stmt)
+        with _trace.span("plan", cat="front"):
+            planned, consts, _outs, exec_key = self._cached_plan(stmt)
         info = dict(self._plan_cache_info)
         plan_ms = (time.perf_counter() - t0) * 1e3
         replanned = False
-        try:
-            res = self.executor.run(planned, consts, cache_key=exec_key)
-        except QueryError as e:
-            if "duplicate keys" not in str(e) or exec_key.endswith("#multi"):
-                raise
-            # the uniqueness heuristic was wrong at run time: re-plan with
-            # the multi-match join everywhere, as the JAX session does,
-            # cached under the plain key so repeats skip the failing plan
-            planned, consts, _outs, exec_key = self._cached_plan(
-                stmt, force_multi_join=True)
-            info = dict(self._plan_cache_info)
-            res = self.executor.run(planned, consts, cache_key=exec_key)
-            replanned = True
+        # admission (the ResLockPortal analog): the resource group's slot
+        # and the resource queue's, held while the statement runs — a
+        # batched member holds its slot while it waits for batch-mates
+        with self._admission():
+            if self._batch_eligible(consts):
+                # batched serving: join the admission window of this
+                # statement's shape; one batched program serves every
+                # member. None = the batch fell back: run classically
+                res = self._batcher().submit(planned, consts, exec_key,
+                                             consts["@params@"])
+                if res is not None:
+                    res.stats.update(plan_ms=plan_ms, plan_cache=info,
+                                     multi_join_replan=False)
+                    return res
+            try:
+                res = self.executor.run(planned, consts, cache_key=exec_key)
+            except QueryError as e:
+                if "duplicate keys" not in str(e) \
+                        or exec_key.endswith("#multi"):
+                    raise
+                # the uniqueness heuristic was wrong at run time: re-plan
+                # with the multi-match join everywhere, as the JAX session
+                # does, cached under the plain key so repeats skip the
+                # failing plan
+                planned, consts, _outs, exec_key = self._cached_plan(
+                    stmt, force_multi_join=True)
+                info = dict(self._plan_cache_info)
+                res = self.executor.run(planned, consts, cache_key=exec_key)
+                replanned = True
         res.stats.update(plan_ms=plan_ms, multi_join_replan=replanned,
                          plan_cache=info)
         return res
 
+    # ---- admission (runtime/resgroup.py, runtime/resqueue.py) ----------
+    def _admission(self):
+        """Statement admission: a resource-group slot (weighted backoff
+        when the global cap binds) with the resource queue's; either is a
+        no-op when unconfigured. The wait is metered into the
+        ``queue_wait_ms`` histogram and the statement's trace. The group
+        slot binds the group's memory cap to the thread
+        (exec/executor.effective_limit_bytes) and charges the group the
+        host-clock time until the statement's result is on the host."""
+        t0 = time.monotonic()
+        st = ExitStack()
+        try:
+            with _trace.span("admission", cat="queue"):
+                st.enter_context(self.resgroups.admit())
+                st.enter_context(self.resqueue.admit())
+        except BaseException:
+            # a queue timeout after the group slot was granted releases
+            # the slot (and the thread's group memory cap)
+            st.close()
+            raise
+        finally:
+            histograms.observe("queue_wait_ms",
+                               (time.monotonic() - t0) * 1e3)
+        return st
+
+    def resgroup_status(self) -> list[dict]:
+        """gp_toolkit.gp_resgroup_status analog."""
+        return self.resgroups.status()
+
+    def _resource_group(self, stmt) -> str:
+        """CREATE / ALTER / DROP RESOURCE GROUP. The JAX session persists
+        the definitions in its catalog; the port's catalog is in memory,
+        so they last as long as this Database (persistence across a
+        reopen waits for ROADMAP Queue 1 item 1a)."""
+        allowed = {"concurrency", "memory_limit_mb", "cpu_weight"}
+        bad = set(stmt.options) - allowed
+        if bad:
+            raise SqlError(f"unknown resource group option(s): "
+                           f"{', '.join(sorted(bad))}")
+        if stmt.action == "create":
+            self.resgroups.create(stmt.name, **stmt.options)
+            return "CREATE RESOURCE GROUP"
+        if stmt.action == "drop":
+            self.resgroups.drop(stmt.name)
+            return "DROP RESOURCE GROUP"
+        self.resgroups.alter(stmt.name, **stmt.options)
+        return "ALTER RESOURCE GROUP"
+
+    # ---- batched serving (exec/batchserve.py) --------------------------
+    def _batcher(self):
+        b = self._batch_server
+        if b is None:
+            with self._batch_server_mu:
+                b = self._batch_server
+                if b is None:
+                    from greengage_tpu_torch.exec.batchserve import \
+                        BatchServer
+
+                    b = self._batch_server = BatchServer(self)
+        return b
+
+    def _batch_eligible(self, consts) -> bool:
+        """May this SELECT ride the batched-serving path? Parameterised
+        statements only, with batching on. The JAX session also keeps
+        external-table loads (``aux`` tables), statements inside an open
+        transaction, multihost and brownout serial; the port has none of
+        these yet (ROADMAP Queue 1 items 1a, 1b, 8 and the server)."""
+        if not bool(self.settings.batch_serving_enabled):
+            return False
+        return (consts or {}).get("@params@") is not None
+
     # ------------------------------------------------------------------
+    @property
+    def _plan_cache_info(self) -> dict:
+        """The last _cached_plan outcome, PER THREAD: concurrent
+        statements must not report each other's plan-cache outcome
+        (Result.stats["plan_cache"])."""
+        return getattr(self._pc_info_local, "info", {})
+
+    @_plan_cache_info.setter
+    def _plan_cache_info(self, info: dict) -> None:
+        self._pc_info_local.info = info
+
     @staticmethod
     def _attach_params(consts, pv, ptypes, info):
         """Bind the statement's CURRENT hoisted values into a fresh consts
@@ -297,7 +499,9 @@ class Database:
         norm, pv, sig = (paramize(stmt, self.catalog)
                          if self.settings.plan_cache_params
                          else (stmt, None, None))
-        if sig is not None and sig in self._paramize_fallback:
+        with self._cache_mu:
+            pinned = sig is not None and sig in self._paramize_fallback
+        if pinned:
             # known-unparameterizable shape: plan value-pinned directly
             norm, pv, sig = stmt, None, None
         info = {"hit": False, "params": 0, "fallback": False}
@@ -308,15 +512,17 @@ class Database:
         key = (key_sig, version)
         cache = self._select_cache
         if not force_multi_join:
-            hit = cache.get(key)
-            if hit is None and sig is not None:
-                # this shape fell back to a value-pinned plan before: look
-                # it up under the full repr
-                fb = cache.get((repr(stmt), version))
-                if fb is not None and fb[4] is None:
-                    key, hit = (repr(stmt), version), fb
+            with self._cache_mu:
+                hit = cache.get(key)
+                if hit is None and sig is not None:
+                    # this shape fell back to a value-pinned plan before:
+                    # look it up under the full repr
+                    fb = cache.get((repr(stmt), version))
+                    if fb is not None and fb[4] is None:
+                        key, hit = (repr(stmt), version), fb
+                if hit is not None:
+                    cache.move_to_end(key)
             if hit is not None:
-                cache.move_to_end(key)
                 counters.inc("plan_cache_hit")
                 info["hit"] = True
                 planned, consts, outs, ek, ptypes = hit
@@ -336,24 +542,27 @@ class Database:
             # parameterized bind
             counters.inc("plan_cache_fallback")
             info.update(fallback=True, params=0)
-            if len(self._paramize_fallback) > 1024:
-                self._paramize_fallback.clear()
-            self._paramize_fallback.add(key_sig)
+            with self._cache_mu:
+                if len(self._paramize_fallback) > 1024:
+                    self._paramize_fallback.clear()
+                self._paramize_fallback.add(key_sig)
             ptypes = None
             key_sig = repr(stmt)
             key = (key_sig, version)
             planned, consts, outs = self._plan(
                 stmt, force_multi_join=force_multi_join)
         ek = key_sig + ("#multi" if force_multi_join else "")
-        cache[key] = (planned, consts, outs, ek, ptypes)
-        cache.move_to_end(key)
-        self._trim_plan_cache()
+        with self._cache_mu:
+            cache[key] = (planned, consts, outs, ek, ptypes)
+            cache.move_to_end(key)
+            self._trim_plan_cache()
         return planned, self._attach_params(consts, pv, ptypes, info), \
             outs, ek
 
     def _trim_plan_cache(self) -> None:
         """Evict least-recently-used bound plans past plan_cache_size; a
-        statement's cap hints go with its last plan."""
+        statement's cap hints go with its last plan. Runs under
+        ``_cache_mu``."""
         cache = self._select_cache
         bound = max(int(self.settings.plan_cache_size), 1)
         while len(cache) > bound:
@@ -443,8 +652,12 @@ class Database:
         return int(v), t
 
     def close(self):
-        """Free the staged tables, the plan cache and this Database's own
-        spill directory."""
-        self._select_cache.clear()
+        """Stop the batch server (its parked members go on on the classic
+        path), then free the staged tables, the plan cache and this
+        Database's own spill directory."""
+        if self._batch_server is not None:
+            self._batch_server.stop()
+        with self._cache_mu:
+            self._select_cache.clear()
         self.executor.close()
 

@@ -22,8 +22,10 @@ settings, as in the JAX package, so both packages spill the same
 statements in the same number of passes at the same
 ``vmem_protect_limit_mb``. The sort and window passes capture storage
 values (the merge orders scaled DECIMALs and day numbers exactly) and
-decode once at the end; EXPLAIN ANALYZE's per-pass row counts, traces and
-multi-host schedule checks wait for ROADMAP Queue 1 items 1c, 7 and 8.
+decode once at the end. Every pass boundary is a cancellation point and a
+``spill-pass`` span of the statement's trace; EXPLAIN ANALYZE's per-pass
+row counts and multi-host schedule checks wait for ROADMAP Queue 1 items
+1c and 8.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ from greengage_tpu_torch.planner.logical import (Aggregate, ColInfo, Filter,
                                                  MotionKind, PartialState,
                                                  Plan, Project, Scan, Sort,
                                                  Window)
+from greengage_tpu_torch.runtime import interrupt
+from greengage_tpu_torch.runtime import trace as _trace
 from greengage_tpu_torch.runtime.logger import counters
 from greengage_tpu_torch.storage import hashing
 
@@ -257,7 +261,10 @@ def _size_chunk_passes(executor, consts, pass_plan, candidates,
 def _run_passes(executor, pass_plan, consts, cols_spec, per_table, item):
     """Every pass of a chunk grid, captured in a SpillWorkfile (the caller
     closes it). The prefetcher builds pass k+1's host buffers while pass k
-    runs; it is joined on every path."""
+    runs; it is joined on every path. Each pass boundary is a
+    cancellation point (the JAX package's partial-aggregate, sorted-run
+    and window-input pass loops, which the port's three spill kinds share
+    here)."""
     from greengage_tpu_torch.exec import staging as _staging
     from greengage_tpu_torch.exec import workfile as _workfile
 
@@ -270,12 +277,15 @@ def _run_passes(executor, pass_plan, consts, cols_spec, per_table, item):
         executor, pass_plan, executor.store.manifest.snapshot(), caps)
     try:
         for i, combo in enumerate(combos):
+            interrupt.check_interrupts()   # spill pass boundary
             prefetcher.next_ranges = (dict(combos[i + 1])
                                       if i + 1 < len(combos) else None)
-            wf.add(executor.run_single(
-                pass_plan, consts, raw=True,
-                scan_cap_override=caps, row_ranges=dict(combo),
-                no_direct=True, prefetcher=prefetcher))
+            with _trace.span("spill-pass", cat="spill", index=i,
+                             total=len(combos), item=item):
+                wf.add(executor.run_single(
+                    pass_plan, consts, raw=True,
+                    scan_cap_override=caps, row_ranges=dict(combo),
+                    no_direct=True, prefetcher=prefetcher))
     except BaseException:
         wf.close()
         raise

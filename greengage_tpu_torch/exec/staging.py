@@ -53,10 +53,20 @@ class _InlineFuture:
 
 
 class _InlinePool:
-    """scan_threads = 1: run units eagerly on the calling thread."""
+    """scan_threads = 1: run units eagerly on the calling thread. After a
+    unit fails (a cancelled statement, a read error) the later units do
+    not run: their futures raise the first failure."""
+
+    def __init__(self):
+        self._failed: _InlineFuture | None = None
 
     def submit(self, fn, *args):
-        return _InlineFuture(fn, args)
+        if self._failed is not None:
+            return self._failed
+        f = _InlineFuture(fn, args)
+        if f._err is not None:
+            self._failed = f
+        return f
 
     def close(self) -> None:
         pass

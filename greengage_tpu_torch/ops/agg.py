@@ -87,7 +87,7 @@ def segment_sum(gid, D: int, vals):
     S = vals.shape[0]
     flat = _flat_index(gid, D)
     out = torch.zeros(S * D, dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, flat, vals.reshape(-1)).reshape(S, D)
+    return out.index_add(0, flat, vals.reshape(-1)).reshape(S, D)
 
 
 def segment_minmax(gid, D: int, vals, func: str, ident):
@@ -103,8 +103,8 @@ def segment_minmax(gid, D: int, vals, func: str, ident):
         return red(vals, dim=1, keepdim=True)
     flat = _flat_index(gid, D)
     red = "amin" if func == "min" else "amax"
-    return out.scatter_reduce_(0, flat, vals.reshape(-1), red,
-                               include_self=True).reshape(S, D)
+    return out.scatter_reduce(0, flat, vals.reshape(-1), red,
+                              include_self=True).reshape(S, D)
 
 
 def _flat_index(gid, D: int):
@@ -336,14 +336,16 @@ def pack_keys(keys: list[KeySpec], bounds: list, sel):
 
 def _run_starts(sorted_ops: list, n: int):
     """bool [nseg, n]: the first row of every run of equal operands."""
-    first = sorted_ops[0].new_ones(sorted_ops[0].shape[0], n, dtype=torch.bool)
-    if n > 1:
-        neq = None
-        for s in sorted_ops:
-            d = s[:, 1:] != s[:, :-1]
-            neq = d if neq is None else neq | d
-        first[:, 1:] = neq
-    return first
+    S = sorted_ops[0].shape[0]
+    first = torch.ones((S, min(n, 1)), dtype=torch.bool,
+                       device=sorted_ops[0].device)
+    if n <= 1:
+        return first
+    neq = None
+    for s in sorted_ops:
+        d = s[:, 1:] != s[:, :-1]
+        neq = d if neq is None else neq | d
+    return torch.cat([first, neq], dim=1)
 
 
 def group_sort(keys: list[KeySpec], sel, bounds: list | None = None):
@@ -412,7 +414,7 @@ def sorted_group_aggregate(boundary, sel_sorted, aggs: list[AggSpec],
                            out_cap)
         rows = torch.arange(n, device=dev).expand(S, n)
         raw = torch.full((S, out_cap + 1), n, dtype=torch.int64, device=dev)
-        raw = raw.scatter_(1, stgt, rows)[:, :out_cap]
+        raw = raw.scatter(1, stgt, rows)[:, :out_cap]
     else:
         want = torch.arange(1, out_cap + 1, device=dev).expand(S, out_cap)
         raw = torch.searchsorted(csb, want.contiguous())
@@ -446,7 +448,7 @@ def sorted_group_aggregate(boundary, sel_sorted, aggs: list[AggSpec],
             tbl = torch.full((S, out_cap + 1), ident, dtype=filled.dtype,
                              device=dev)
             red = "amin" if job.op == "min" else "amax"
-            return tbl.scatter_reduce_(1, tgt, filled, red)[:, :out_cap]
+            return tbl.scatter_reduce(1, tgt, filled, red)[:, :out_cap]
         if masked.dtype == torch.int64:
             lo = masked & 0xFFFFFFFF           # [0, 2^32)
             hi = masked >> 32                  # arithmetic shift
@@ -454,7 +456,7 @@ def sorted_group_aggregate(boundary, sel_sorted, aggs: list[AggSpec],
         if masked.dtype == torch.float64:
             tbl = torch.zeros((S, out_cap + 1), dtype=torch.float64,
                               device=dev)
-            return tbl.scatter_add_(1, tgt, masked)[:, :out_cap]
+            return tbl.scatter_add(1, tgt, masked)[:, :out_cap]
         return span(cumsum_rows(masked))
 
     vals, valids = _run_aggs(aggs, sel_sorted, reduce)

@@ -8,6 +8,12 @@ The port's counterpart of greengage_tpu/ops/batch.py. Every tensor is
   instead of compacting, keeping shapes static.
 
 A plain dataclass: eager torch needs no pytree registration.
+
+``member_batched(t)``: whether ``t`` carries a batched program's member
+axis (exec/compile.py ``batch_width``, under ``torch.func.vmap``). The one
+operator that reads the device to end a loop early (the hash join's probe
+walk) runs its full bound instead for such a value, whose members may
+stop at different hops.
 """
 
 from __future__ import annotations
@@ -44,3 +50,9 @@ class Batch:
 
     def with_sel(self, sel: torch.Tensor) -> "Batch":
         return Batch(dict(self.cols), dict(self.valids), sel)
+
+
+def member_batched(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``torch.func.vmap`` batched value (a batched
+    program's per-member tensor): its value cannot be read on the host."""
+    return torch._C._functorch.is_batchedtensor(t)

@@ -44,6 +44,7 @@ import torch
 
 from greengage_tpu_torch.ops import hashing
 from greengage_tpu_torch.ops.agg import BIG, KeySpec, _run_starts
+from greengage_tpu_torch.ops.batch import member_batched
 from greengage_tpu_torch.ops.sort import (BIT63, _lexsort, cumsum_rows,
                                           suffix_min_rows)
 
@@ -226,8 +227,11 @@ def _walk(table: SortTable, keys: list[KeySpec], sel, num_probes: int):
     matched = torch.zeros_like(sel)
     mpos = torch.zeros_like(start)
     for i in range(num_probes):
-        # the JAX loop's condition, read after hops 2, 4, 8, ...
-        if i >= 2 and i & (i - 1) == 0 and not bool(active.any()):
+        # the JAX loop's condition, read after hops 2, 4, 8, ... (a
+        # batched program's members walk the full bound: the hops after
+        # the last active probe change nothing)
+        if i >= 2 and i & (i - 1) == 0 and not member_batched(active) \
+                and not bool(active.any()):
             break
         safe = torch.clamp(pos, 0, last)
         hit = active
@@ -360,7 +364,7 @@ def build_direct(key: KeySpec, sel, lo: int, domain: int) -> DirectTable:
     rows = torch.arange(n, device=dev).expand(S, n)
     idx = torch.where(in_dom, v, rows % domain)
     slot_row = torch.full((S, domain), -1, dtype=torch.int32, device=dev)
-    slot_row = slot_row.scatter_reduce_(
+    slot_row = slot_row.scatter_reduce(
         1, idx, torch.where(in_dom, rows.to(torch.int32), -1), "amax")
     # duplicates: a build row that did not win its key's slot shares the
     # key with another (the JAX package counts claims per slot: > 1)

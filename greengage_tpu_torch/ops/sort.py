@@ -160,9 +160,9 @@ def _blocks(x, fill, block: int):
     """x [S, n] padded with ``fill`` to whole blocks -> [S * nb, block]."""
     S, n = x.shape
     nb = max(-(-n // block), 1)
-    xp = torch.full((S, nb * block), fill, dtype=x.dtype, device=x.device)
-    xp[:, :n] = x
-    return xp.reshape(S * nb, block), nb
+    pad = torch.full((S, nb * block - n), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([x, pad], dim=1).reshape(S * nb, block), nb
 
 
 def float_cumsum_rows(x, block: int = 1024):

@@ -75,8 +75,8 @@ def _spans(is_first):
     idx = torch.arange(n, device=dev).expand(S, n)
     g = cumsum_rows(is_first.to(torch.int64))
     firsts = torch.full((S, n + 2), n, dtype=torch.int64, device=dev)
-    firsts.scatter_(1, torch.where(is_first, g - 1, n + 1), idx)
-    firsts = firsts[:, :n + 1]
+    firsts = firsts.scatter(1, torch.where(is_first, g - 1, n + 1),
+                            idx)[:, :n + 1]
     starts = torch.where(g > 0, firsts.gather(1, torch.clamp(g - 1, min=0)),
                          0)
     ends = firsts.gather(1, g) - 1

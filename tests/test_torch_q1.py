@@ -195,7 +195,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                         ("ops", "join.py"), ("ops", "window.py"),
                         ("utils", "tpcds.py"), ("exec", "spill.py"),
                         ("exec", "workfile.py"), ("exec", "staging.py"),
-                        ("exec", "motionpipe.py"), ("sql", "paramize.py")]:
+                        ("exec", "motionpipe.py"), ("sql", "paramize.py"),
+                        ("exec", "batchserve.py"),
+                        ("runtime", "faultinject.py"),
+                        ("runtime", "interrupt.py"), ("runtime", "trace.py"),
+                        ("runtime", "runaway.py"), ("runtime", "resqueue.py"),
+                        ("runtime", "resgroup.py")]:
         assert os.path.join("greengage_tpu_torch", sub, module) in rel
     assert "chip_smoke.py" in rel
     for path in sources:

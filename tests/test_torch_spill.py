@@ -10,7 +10,8 @@ JAX package on the same numpy inputs.
     once demotes to the spill passes and answers exactly, as the JAX
     package does under its ``device_oom`` fault; twice (the first pass
     fails too), or with ``oom_spill_retry`` off, it raises
-    ``OutOfDeviceMemory``.
+    ``OutOfDeviceMemory``. The port's own ``device_oom`` fault point gives
+    the same outcomes.
 (c) The RAM-then-disk workfile tier under a tiny ``spill_host_limit_mb``:
     passes demote to files in the statement's spill directory and promote
     back; the directory is empty after. The frame format's corruption
@@ -323,6 +324,33 @@ def test_oom_with_the_retry_off_raises(win, oom_after):
         assert e.value.est_bytes > 0
     finally:
         d.sql("set oom_spill_retry = on")
+
+
+@pytest.mark.parametrize("occurrences", [1, 2])
+def test_device_oom_fault_demotes_as_jax(win, occurrences):
+    """The same demotion through the port's own ``device_oom`` fault point
+    (runtime/faultinject.py, checked where the program launches), the
+    JAX package under the same fault: once demotes with equal rows; twice
+    raises the typed OutOfDeviceMemory in both."""
+    from greengage_tpu.exec.executor import OutOfDeviceMemory as JOOM
+    from greengage_tpu_torch.runtime.faultinject import faults as tfaults
+
+    outcome = {}
+    for name, fl in (("jax", faults), ("torch", tfaults)):
+        fl.inject("device_oom", "skip", occurrences=occurrences)
+        try:
+            outcome[name] = win[name].sql(OOM_Q)
+        except (JOOM, OutOfDeviceMemory) as e:
+            outcome[name] = e
+        finally:
+            fl.reset()
+    j, t = outcome["jax"], outcome["torch"]
+    if occurrences == 1:
+        assert t.stats["oom_demoted"] is True is j.stats["oom_demoted"]
+        _assert_same(j, t, ordered=False)
+    else:
+        assert isinstance(j, JOOM) and isinstance(t, OutOfDeviceMemory)
+        assert "device_oom" in str(t)
 
 
 # ---- (c) the workfile's disk tier ----------------------------------------------
