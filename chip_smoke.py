@@ -54,16 +54,34 @@ Phases, one JSON line each; any failure exits non-zero:
            window mode)
   spill    admission and spill passes on the same Database: the earlier
            phases' statements at the default ceiling (none spills; each
-           one's est_bytes x nseg beside its peak), Q1 past a quarter of
-           its estimate in partial-aggregate passes (one fused launch per
-           pass, its peak below the unspilled Q1's), Q3's joins grouped by
-           order priority, a PARTITION BY window and an ORDER BY past
-           their ceilings, each exact against numpy; a real out-of-memory
-           error (a ballast tensor, admission off) demoted to the spill
-           passes; a warm Q1 with another date literal hitting the plan
-           cache; the host syncs of a spilled Q1, and the kernel against
-           its plain version and bound at one pass's job table (the
-           kernel line's numbers: this is the main path)
+           one's est_bytes x nseg beside what it is admitted at, measured
+           or estimated, and its peak), Q1 past a quarter of what it is
+           admitted at (not below an eighth of its estimate) in
+           partial-aggregate passes (one fused launch per pass where the
+           gate passes, its peak below the unspilled Q1's), Q3's joins
+           grouped by order priority (a first run, admitted by its
+           estimate), a PARTITION BY window and an ORDER BY past ceilings
+           set as Q1's, each exact against numpy; a real
+           out-of-memory error (a ballast tensor, admission off) demoted
+           to the spill passes; a warm Q1 with another date literal
+           hitting the plan cache; the host syncs of a spilled Q1, and
+           the kernel against its plain version and bound at one pass's
+           job table
+  serve    concurrent statements on the same Database: 64 TPC-H Q6s from
+           16 threads, batching off and on; a cancelled batch member; Q3
+           past its statement timeout; a resource queue of one slot
+  wire     SQL over the server's unix socket on the same Database
+           (runtime/server.py): Q1, Q6 and Q3 exact against numpy, Q1
+           launching the fused kernel once (the kernel line's numbers are
+           its job table's: this is the main path); warm medians over the
+           wire beside the in-process ones, in turn; 64 Q6s from 16
+           connections with batching on, beside the serve phase's
+           in-process numbers; ps and cancel of a held statement; a
+           client gone mid-statement; the mem and metrics ops; a warm Q1
+           admitted by its measured bytes; a brownout caused by a ballast
+           tensor on the card, batching off while it lasts, then cleared;
+           max_connections = 2 shedding a third connection; TCP with a
+           user's password; stop() with a statement in flight
   dryrun   the distributed step's exact-sum check
 
 then the kernel table, the nvidia-smi line, and as the last line
@@ -920,15 +938,21 @@ def check_q12(res, ref: list) -> None:
 
 
 def phase_joins(torch, data, db, nseg: int, reps: int, name: str,
-                profile: bool = False) -> int:
+                profile: bool = False, require_fused: bool = True) -> int:
     """TPC-H Q3 and Q12 as SQL on the sql phase's Database: load orders and
     customer beside lineitem and ANALYZE them; Q3 (three-way join, a
     GROUP BY without a dense domain, ORDER BY ... LIMIT) and Q12 (a join
     into the fused kernel's GROUP BY) equal numpy references exactly; Q3
     through the sort-built hash tables (no_direct) equals its direct-path
-    rows; every warm Q12 launches the fused kernel once; warm medians of
+    rows; every warm Q12 launches the fused kernel as its gate decided
+    (``stats["fused_gate"]``: once when it passed, never when it declined;
+    ``require_fused`` asks that it passed, as it does at SF10: below
+    ~SF 2 a warm Q12's join output, sized by its cap hint, has fewer rows
+    per segment than ``fused_dense_min_rows``, and the gate declines in
+    both packages); warm medians of
     SQL Q1, SQL Q3, Q3 over the hash path and SQL Q12 in turn; the kernel
-    against its plain version and its bound at Q12's job table; the host
+    against its plain version and its bound at Q12's job table (when the
+    warm gate passed); the host
     syncs of one warm Q3 on each path; the device memory peak. -> the
     kernel's launches in the main path's run (one cold Q3, one cold
     Q12)."""
@@ -1000,9 +1024,14 @@ def phase_joins(torch, data, db, nseg: int, reps: int, name: str,
         againh, s3 = timed(hash_q3)
         before = fused_agg.LAUNCHES
         again12, s4 = timed(lambda: db.sql(SQL_Q12))
-        if fused_agg.LAUNCHES != before + 1:
-            raise AssertionError("a warm SQL Q12 did not launch the fused "
-                                 "kernel exactly once")
+        gate = again12.stats["fused_gate"]
+        if require_fused and not gate:
+            raise AssertionError("the fused gate declined a warm SQL Q12")
+        if fused_agg.LAUNCHES != before + int(gate):
+            raise AssertionError(
+                f"a warm SQL Q12 launched the fused kernel "
+                f"{fused_agg.LAUNCHES - before} times, its gate "
+                f"{'passed' if gate else 'declined'}")
         if i:
             for k, v in zip(warm, (s1, s2, s3, s4)):
                 warm[k].append(v)
@@ -1025,8 +1054,11 @@ def phase_joins(torch, data, db, nseg: int, reps: int, name: str,
         check_q12(db.sql(SQL_Q12), ref12)
     finally:
         fused_agg._segment_reduce_fused = fused
-    q12_kernel = _timed_form(torch, tables[0], "Q12 partial aggregate over "
-                             "the join output (Q12's job table)", 20)
+    q12_kernel = {"ms": None, "bound_ms": None, "max_abs_err": None}
+    if tables:
+        q12_kernel = _timed_form(torch, tables[0], "Q12 partial aggregate "
+                                 "over the join output (Q12's job table)",
+                                 20)
     del tables
 
     # the direct path waits for the card in the executor only (the flags
@@ -1064,6 +1096,7 @@ def phase_joins(torch, data, db, nseg: int, reps: int, name: str,
           "hash_sync_sites": hash_syncs,
           "q3_first_row": [str(v) for v in res3.rows()[0]],
           "q12_rows": [[str(v) for v in r] for r in res12.rows()],
+          "q12_warm_fused_gate": gate,
           "q12_kernel_ms": q12_kernel["ms"],
           "q12_kernel_bound_ms": q12_kernel["bound_ms"],
           "q12_kernel_max_abs_err": q12_kernel["max_abs_err"],
@@ -1631,6 +1664,38 @@ def _fresh_peak(torch, db) -> int:
     return torch.cuda.memory_allocated()
 
 
+def _admitted(db, text: str):
+    """Run ``text`` until two runs in a row are admitted alike (by the
+    same bytes, measured or estimated): a statement's first run measures
+    its program, and the next runs are admitted by what it measured. ->
+    the last run's Result, whose ``stats["mem"]["admitted_bytes"]`` the
+    next run is admitted at."""
+    prev = None
+    for _ in range(5):
+        res = db.sql(text)
+        mem = res.stats["mem"]
+        cur = (mem["admitted_by"], mem["admitted_bytes"])
+        if cur == prev:
+            return res
+        prev = cur
+    raise AssertionError(f"admission of {text.strip()[:60]!r} never "
+                         f"settled: {res.stats['mem']}")
+
+
+def _spill_ceiling_mb(res, share: int) -> int:
+    """A spill ceiling from what a settled run of the statement was
+    admitted at: 1/share of its admitted bytes, but not below an eighth
+    of its estimate, because the passes are sized by their estimates (as
+    in the JAX package), and far below that no pass fits; always below
+    the admitted bytes, so the statement spills."""
+    mem = res.stats["mem"]
+    ceiling = max(mem["admitted_bytes"] // share, mem["est_bytes"] // 8)
+    if ceiling >= mem["admitted_bytes"]:
+        raise AssertionError(f"no ceiling below what the statement is "
+                             f"admitted at: {mem}")
+    return max(ceiling >> 20, 1)
+
+
 def _at_limit(db, mb: int, text: str):
     db.sql(f"set vmem_protect_limit_mb = {mb}")
     try:
@@ -1639,9 +1704,14 @@ def _at_limit(db, mb: int, text: str):
         db.sql("set vmem_protect_limit_mb = 12288")
 
 
-def phase_spill(torch, data, db, nseg: int, reps: int, name: str):
-    """Admission and spill passes at SF10 on the windows phase's Database:
-    Q1 past a lowered ceiling in at least 4 partial-aggregate passes (the
+def phase_spill(torch, data, db, nseg: int, reps: int, name: str,
+                require_fused: bool = True):
+    """Admission and spill passes at SF10 on the windows phase's Database.
+    Each ceiling is set from what the statement is admitted at
+    (``stats["mem"]["admitted_bytes"]`` of a settled run: its measured
+    bytes once its program was measured, its estimate before; see
+    ``_spill_ceiling_mb``): Q1 past a quarter of it (not below an eighth
+    of its estimate) in at least 4 partial-aggregate passes (the
     fused kernel launched once per pass; its peak memory below the
     unspilled statement's), Q3's joins grouped by order priority (join +
     partial aggregate over lineitem chunks),
@@ -1665,7 +1735,8 @@ def phase_spill(torch, data, db, nseg: int, reps: int, name: str):
         before = fused_agg.LAUNCHES
         res = real_single(*a, **k)
         per_run.append(("merge" if k.get("aux_tables") else "pass",
-                        fused_agg.LAUNCHES - before))
+                        fused_agg.LAUNCHES - before,
+                        res.stats.get("fused_gate", False)))
         return res
 
     # the earlier phases' statements at the default ceiling: none may
@@ -1678,7 +1749,7 @@ def phase_spill(torch, data, db, nseg: int, reps: int, name: str):
                "union_all": SQL_UNION_ALL, "union": SQL_UNION,
                "constrel": SQL_CONSTREL}
     for key, text in earlier.items():
-        db.sql(text)
+        _admitted(db, text)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1686,8 +1757,12 @@ def phase_spill(torch, data, db, nseg: int, reps: int, name: str):
         torch.cuda.synchronize()
         if "spill_passes" in res.stats:
             raise AssertionError(f"{key} spilled at the default ceiling")
+        mem = res.stats["mem"]
         est_vs_peak[key] = {
-            "est_bytes_x_nseg": res.stats["mem"]["est_bytes"] * nseg,
+            "est_bytes_x_nseg": mem["est_bytes"] * nseg,
+            "admitted_by": mem["admitted_by"],
+            "admitted_bytes_x_nseg": mem["admitted_bytes"] * nseg,
+            "measured": mem["measured"],
             "peak_over_base": torch.cuda.max_memory_allocated() - base}
     out["est_vs_peak"] = est_vs_peak
 
@@ -1696,7 +1771,9 @@ def phase_spill(torch, data, db, nseg: int, reps: int, name: str):
     fused_agg.LAUNCHES = 0
     ex.run_single = counted_single
     try:
-        # ---- Q1: unspilled, then past a quarter of its estimate --------
+        # ---- Q1: unspilled, then past a quarter of what it is admitted
+        # at -------------------------------------------------------------
+        _admitted(db, q1_a)
         base = _fresh_peak(torch, db)
         t = time.perf_counter()
         full = db.sql(q1_a)
@@ -1705,7 +1782,8 @@ def phase_spill(torch, data, db, nseg: int, reps: int, name: str):
         check_q1(full, ref_a)
         peak_full = torch.cuda.max_memory_allocated() - base
         est = full.stats["mem"]["est_bytes"]
-        limit_mb = max((est // 4) >> 20, 1)
+        admitted = full.stats["mem"]["admitted_bytes"]
+        limit_mb = _spill_ceiling_mb(full, 4)
         base = _fresh_peak(torch, db)
         per_run.clear()
         before = fused_agg.LAUNCHES
@@ -1717,19 +1795,28 @@ def phase_spill(torch, data, db, nseg: int, reps: int, name: str):
         launches_q1 = fused_agg.LAUNCHES - before
         check_q1(spilled, ref_a)
         passes = spilled.stats.get("spill_passes", 0)
-        pass_launches = [n for kind, n in per_run if kind == "pass"]
-        merge_launches = sum(n for kind, n in per_run if kind == "merge")
-        if passes < 4 or len(pass_launches) != passes \
-                or any(n != 1 for n in pass_launches) \
-                or launches_q1 != passes + merge_launches:
+        pass_runs = [(n, g) for kind, n, g in per_run if kind == "pass"]
+        pass_launches = [n for n, _ in pass_runs]
+        merge_launches = sum(n for kind, n, _ in per_run if kind == "merge")
+        # each pass launches the kernel as its gate decided: below ~SF 2
+        # a pass's lineitem chunk has fewer rows per segment than
+        # fused_dense_min_rows and the gate declines (as the JAX
+        # package's does); at SF10 every pass takes it
+        if passes < 4 or len(pass_runs) != passes \
+                or any(n != int(g) for n, g in pass_runs) \
+                or (require_fused and not all(g for _, g in pass_runs)) \
+                or launches_q1 != sum(pass_launches) + merge_launches:
             raise AssertionError(
-                f"spilled Q1: {passes} passes, launches per run {per_run}, "
-                f"{launches_q1} in all: expected at least 4 passes of one "
-                "launch each plus the merge's")
+                f"spilled Q1: {passes} passes, (launches, gate) per run "
+                f"{per_run}, {launches_q1} in all: expected at least 4 "
+                "passes, each launching as its gate decided, plus the "
+                "merge's")
         if not peak_spill < peak_full:
             raise AssertionError(f"spilled Q1 peaked at {peak_spill} bytes, "
                                  f"not below the unspilled {peak_full}")
         out["q1"] = {"est_bytes": est, "est_bytes_x_nseg": est * nseg,
+                     "admitted_by": full.stats["mem"]["admitted_by"],
+                     "admitted_bytes": admitted,
                      "limit_mb": limit_mb, "passes": passes,
                      "pass_launches": pass_launches,
                      "merge_launches": merge_launches,
@@ -1739,34 +1826,53 @@ def phase_spill(torch, data, db, nseg: int, reps: int, name: str):
                                        if k != "metrics"}}
 
         # ---- Q3's joins over lineitem: join + partial aggregate ---------
+        # the passes are sized by their estimates (as in the JAX
+        # package): the orders side (its scans, Redistributes and the
+        # join's build table) stays whole in every pass, ~58% of the
+        # estimate, so only a ceiling above ~0.83 of it lets lineitem
+        # chunks alone fit, and no ceiling below its measured bytes
+        # (~0.5 of the estimate) has passes that fit. Its first run is
+        # admitted by the estimate (no program of it has launched yet):
+        # the statement is forgotten (its cap hints and cached programs)
+        # before that run and again before the spilled one, so both are
+        # first runs, admitted alike
+        from greengage_tpu_torch.sql.parser import parse as _parse
+
         q3_ref = q3_by_priority_reference(data)
+        q3_key = db._cached_plan(_parse(SQL_Q3_BY_PRIORITY)[0])[3]
+        ex.forget(q3_key)
         full3 = db.sql(SQL_Q3_BY_PRIORITY)
         if _raw_rows(full3) != q3_ref:
             raise AssertionError(f"Q3 by priority {_raw_rows(full3)} "
                                  f"differs from numpy {q3_ref}")
         est3 = full3.stats["mem"]["est_bytes"]
+        adm3 = full3.stats["mem"]["admitted_bytes"]
+        if full3.stats["mem"]["admitted_by"] != "estimate":
+            raise AssertionError(f"a first Q3 by priority was admitted by "
+                                 f"{full3.stats['mem']}")
+        ex.forget(q3_key)
         t = time.perf_counter()
-        # the orders side (its scans, Redistributes and the join's build
-        # table) stays whole in every pass: ~58% of the estimate, so only
-        # a ceiling above ~0.83 of it lets lineitem chunks alone fit
-        # (0.7 of the ceiling per pass)
-        sp3 = _at_limit(db, max((est3 * 9 // 10) >> 20, 1),
+        sp3 = _at_limit(db, max((adm3 * 9 // 10) >> 20, 1),
                         SQL_Q3_BY_PRIORITY)
         torch.cuda.synchronize()
         if sp3.stats.get("spill_passes", 0) < 2 \
                 or _raw_rows(sp3) != q3_ref:
             raise AssertionError(f"spilled Q3 by priority: {sp3.stats}")
-        out["q3_by_priority"] = {"est_bytes": est3, "rows": len(sp3),
+        out["q3_by_priority"] = {"est_bytes": est3, "admitted_bytes": adm3,
+                             "admitted_by":
+                                 full3.stats["mem"]["admitted_by"],
+                             "rows": len(sp3),
                              "passes": sp3.stats["spill_passes"],
                              "spilled_s": time.perf_counter() - t}
 
         # ---- a PARTITION BY window and an ORDER BY ----------------------
         for key, text, kind in (("window", SQL_WIN_SPILL, "window"),
                                 ("sort", SQL_SORT_SPILL, "sort")):
-            plain = db.sql(text)
+            plain = _admitted(db, text)
             est_k = plain.stats["mem"]["est_bytes"]
+            adm_k = plain.stats["mem"]["admitted_bytes"]
             t = time.perf_counter()
-            res = _at_limit(db, max((est_k // 4) >> 20, 1), text)
+            res = _at_limit(db, _spill_ceiling_mb(plain, 4), text)
             torch.cuda.synchronize()
             sec = time.perf_counter() - t
             if res.stats.get("spill_kind") != kind \
@@ -1782,7 +1888,9 @@ def phase_spill(torch, data, db, nseg: int, reps: int, name: str):
                 ok = all(np.array_equal(g, w) for g, w in zip(raw, want))
             if not ok:
                 raise AssertionError(f"{key} spill differs from numpy")
-            out[key] = {"est_bytes": est_k, "rows": len(res),
+            out[key] = {"est_bytes": est_k, "admitted_bytes": adm_k,
+                        "admitted_by": plain.stats["mem"]["admitted_by"],
+                        "rows": len(res),
                         "passes": res.stats["spill_passes"], "spilled_s": sec}
 
         # ---- a real out-of-memory error, demoted ------------------------
@@ -1859,8 +1967,12 @@ def phase_spill(torch, data, db, nseg: int, reps: int, name: str):
         check_q1(_at_limit(db, limit_mb, q1_a), ref_a)
     finally:
         fused_agg._segment_reduce_fused = fused
-    form = _timed_form(torch, tables[0], "spilled Q1 pass (lineitem chunk, "
-                       "Q1's job table)", 20)
+    # (none below ~SF 2, where the passes' gate declines)
+    form = {"ms": None, "plain_ms": None, "bound_ms": None,
+            "library_ms": None, "max_abs_err": None, "n": None}
+    if tables:
+        form = _timed_form(torch, tables[0], "spilled Q1 pass (lineitem "
+                           "chunk, Q1's job table)", 20)
     del tables
     out.update(fused_dense_agg_launches=launches, pass_kernel_ms=form["ms"],
                pass_kernel_bound_ms=form["bound_ms"],
@@ -1931,10 +2043,13 @@ def _check_q6(res, want: int, what: str) -> None:
         raise AssertionError(f"{what}: Q6 {got.tolist()} != {want}")
 
 
-def _serve_run(torch, db, texts: list, refs: list, clients: int) -> dict:
+def _serve_run(torch, db, texts: list, refs: list, clients: int,
+               run_one=None) -> dict:
     """Every statement of ``texts`` from ``clients`` threads (statement i
-    on thread i % clients), each exact against refs[i]. -> throughput,
-    latencies, the batch counters' deltas and the width histogram."""
+    on thread i % clients), each exact against refs[i]: through
+    ``db.sql``, or ``run_one(k, i)`` (client k runs and checks statement
+    i). -> throughput, latencies, the batch counters' deltas and the
+    width histogram."""
     import threading
 
     from greengage_tpu_torch.runtime.logger import counters, histograms
@@ -1947,13 +2062,17 @@ def _serve_run(torch, db, texts: list, refs: list, clients: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
 
+    def in_process(k, i):
+        _check_q6(db.sql(texts[i]), refs[i], f"served statement {i}")
+
+    run_one = run_one or in_process
+
     def client(k):
         try:
             for i in range(k, len(texts), clients):
                 t = time.perf_counter()
-                res = db.sql(texts[i])
+                run_one(k, i)
                 lat[i] = time.perf_counter() - t
-                _check_q6(res, refs[i], f"served statement {i}")
         except BaseException as e:   # re-raised on the main thread
             errors.append(e)
 
@@ -2041,8 +2160,7 @@ def phase_serve(torch, data, db, nseg: int, seed: int, name: str) -> int:
 
     # ---- what the traces cost: the device-memory sampler and a warm Q6
     # with tracing on and off, in turns --------------------------------
-    from greengage_tpu_torch.exec.session import allocated_bytes
-    from greengage_tpu_torch.runtime import trace
+    from greengage_tpu_torch.runtime import memaccount, trace
 
     def call_us(fn, n=2000):
         fn()
@@ -2051,8 +2169,7 @@ def phase_serve(torch, data, db, nseg: int, seed: int, name: str) -> int:
             fn()
         return (time.perf_counter() - t) / n * 1e6
 
-    idx = torch.cuda.current_device()
-    if allocated_bytes(idx) != torch.cuda.memory_allocated():
+    if memaccount.sample_watermark() != torch.cuda.memory_allocated():
         raise AssertionError("the trace's sampler reads another counter")
     on_off = {"on": [], "off": []}
     for i in range(22):
@@ -2068,7 +2185,7 @@ def phase_serve(torch, data, db, nseg: int, seed: int, name: str) -> int:
     spans = trace.TRACES.last().export()
     out["trace_cost"] = {
         "memory_allocated_us": call_us(torch.cuda.memory_allocated),
-        "sampler_us": call_us(lambda: allocated_bytes(idx)),
+        "sampler_us": call_us(memaccount.sample_watermark),
         "q6_spans": len(spans),
         "q6_sampled_spans": sum("hbm_bytes" in sp["args"] for sp in spans),
         "q6_warm_ms_trace_on": statistics.median(on_off["on"]),
@@ -2197,7 +2314,414 @@ def phase_serve(torch, data, db, nseg: int, seed: int, name: str) -> int:
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                ok=True)
     emit(out)
-    return launches
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# SQL over the wire: the server, overload protection and measured memory
+# ---------------------------------------------------------------------------
+
+def _q1_frame_rows(ref: dict) -> list:
+    """Q1's rows as the server's frame carries them, from the numpy
+    reference: DECIMAL sums descaled to float64 as the engine presents
+    them (scale 2 for the quantity and price, 4 and 6 for the products),
+    avg as its float64, counts as ints."""
+    scales = {"sum_qty": 2, "sum_base_price": 2, "sum_disc_price": 4,
+              "sum_charge": 6}
+    rows = []
+    for key in sorted(ref):
+        w = ref[key]
+        row = list(key)
+        for name in ("sum_qty", "sum_base_price", "sum_disc_price",
+                     "sum_charge", "avg_qty", "avg_price", "avg_disc",
+                     "count_order"):
+            v = w[name]
+            if name in scales:
+                v = float(np.float64(v) / (10.0 ** scales[name]))
+            elif isinstance(v, int):
+                v = int(v)
+            else:
+                v = float(v)
+            row.append(v)
+        rows.append(row)
+    return rows
+
+
+def _check_frame(frame: dict, want_rows: list, what: str) -> None:
+    if not frame.get("ok") or frame.get("rows") != want_rows:
+        raise AssertionError(f"{what} over the wire: {frame} != {want_rows}")
+
+
+def _check_q3_frame(frame: dict, ref: list) -> None:
+    """Q3 over the wire against the numpy reference: (revenue, orderdate)
+    in order exactly, the orderkeys distinct groups of the reference."""
+    if not frame.get("ok") or frame["columns"] != [
+            "l_orderkey", "revenue", "o_orderdate", "o_shippriority"]:
+        raise AssertionError(f"Q3 over the wire: {frame}")
+    epoch = np.datetime64("1970-01-01", "D")
+    want = [(float(np.float64(r) / 1e4), str(epoch + np.timedelta64(d, "D")))
+            for r, d, _ in ref[:10]]
+    got = [(r[1], r[2]) for r in frame["rows"]]
+    if got != want:
+        raise AssertionError(f"Q3 over the wire {got} != {want}")
+    keys = {k for _, _, k in ref}
+    if len({r[0] for r in frame["rows"]}) != 10 \
+            or not all(r[0] in keys and r[3] == 0 for r in frame["rows"]):
+        raise AssertionError(f"Q3 over the wire: rows {frame['rows']}")
+
+
+def _wait_for(pred, timeout_s: float = 10.0, what: str = "") -> None:
+    end = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > end:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def phase_wire(torch, data, db, nseg: int, reps: int, seed: int, name: str,
+               smi_line: str, serve: dict) -> tuple[int, dict]:
+    """SQL over the server's socket on the serve phase's Database (SF10, 8
+    segments): SQL Q1, Q6 and Q3 over the wire, each exact against numpy,
+    Q1 launching the fused kernel once; warm medians over the wire and in
+    process, in turn; 64 Q6s from 16 connections with batching on, beside
+    the serve phase's in-process numbers; ps and cancel of a statement
+    held at a fault point; a client gone mid-statement; the mem and
+    metrics ops; measured admission of a warm Q1; a brownout caused by
+    the card's allocator (a ballast tensor) that disables batching and
+    clears; a connection cap; TCP with authentication; stop() with a
+    statement in flight. -> (the fused kernel's launches by the wire's
+    Q1, the _timed_form row of the job table it handed the kernel)."""
+    import socket
+    import tempfile
+    import threading
+
+    from greengage_tpu_torch.ops import fused_agg
+    from greengage_tpu_torch.runtime import auth, memaccount, overload
+    from greengage_tpu_torch.runtime.faultinject import faults
+    from greengage_tpu_torch.runtime.interrupt import REGISTRY
+    from greengage_tpu_torch.runtime.logger import counters
+    from greengage_tpu_torch.runtime.server import (SqlClient, SqlServer,
+                                                    _encode_value)
+
+    li = data["lineitem"]
+    t_ref = time.perf_counter()
+    q1_rows = _q1_frame_rows(q1_reference(li, _days("1998-09-02")))
+    q6_rows = [[float(np.float64(q6_reference(li)) / 1e4)]]
+    q3_ref = q3_reference(data)
+    rng = np.random.default_rng(seed + 1)
+    params = q6_params(rng, SERVE_STATEMENTS)
+    texts = [q6_text(p) for p in params]
+    refs = q6_references(li, params)
+    out = {"phase": "wire", "nseg": nseg, "device": name, "card": smi_line,
+           "reference_s": time.perf_counter() - t_ref}
+    tmp = tempfile.mkdtemp(prefix="gg-wire-")
+    sock = f"{tmp}/gg.sock"
+    srv = SqlServer(db, sock, host="127.0.0.1", port=0)
+    srv.start()
+    clients = []
+
+    def client(**kw):
+        c = SqlClient(sock, **kw) if not kw else SqlClient(**kw)
+        clients.append(c)
+        return c
+
+    try:
+        c = client()
+        # ---- the main path: Q1 over the wire, one launch ---------------
+        tables = []
+        fused = fused_agg._segment_reduce_fused
+
+        def keep(table):
+            tables.append(table)
+            return fused(table)
+
+        fused_agg._segment_reduce_fused = keep
+        fused_agg.LAUNCHES = 0
+        try:
+            f1 = c.sql(SQL_Q1)
+        finally:
+            fused_agg._segment_reduce_fused = fused
+        launches = fused_agg.LAUNCHES
+        if launches != 1:
+            raise AssertionError(f"SQL Q1 over the wire launched the fused "
+                                 f"kernel {launches} times")
+        _check_frame(f1, q1_rows, "SQL Q1")
+        form = _timed_form(torch, tables[0], "SQL Q1 over the wire (Q1's "
+                           "job table)", 20)
+        del tables
+        _check_frame(c.sql(SQL_Q6), q6_rows, "SQL Q6")
+        _check_q3_frame(c.sql(SQL_Q3), q3_ref)
+        # the in-process Result encodes to the same frame
+        res1 = db.sql(SQL_Q1)
+        if [[_encode_value(v) for v in r] for r in res1.rows()] != q1_rows:
+            raise AssertionError("in-process Q1 encodes to another frame")
+
+        # ---- warm medians: in process and over the wire, in turn -------
+        warm = {f"{w}_{q}": [] for q in ("q1", "q6", "q3")
+                for w in ("sql", "wire")}
+        for i in range(reps + 1):
+            for q, text in (("q1", SQL_Q1), ("q6", SQL_Q6), ("q3", SQL_Q3)):
+                t = time.perf_counter()
+                db.sql(text)
+                torch.cuda.synchronize()
+                s1 = time.perf_counter() - t
+                t = time.perf_counter()
+                c.sql(text)
+                s2 = time.perf_counter() - t
+                if i:
+                    warm[f"sql_{q}"].append(s1)
+                    warm[f"wire_{q}"].append(s2)
+        out["warm_median_s"] = {k: statistics.median(v)
+                                for k, v in warm.items()}
+        out["warm_s"] = warm
+
+        # ---- 64 Q6s from 16 connections, batching on -------------------
+        db.sql("set batch_serving_enabled = on")
+        db.sql("set batch_window_ms = 2")
+        conns = [client() for _ in range(SERVE_CLIENTS)]
+
+        def over_the_wire(k, i):
+            _check_frame(conns[k].sql(texts[i]),
+                         [[float(np.float64(refs[i]) / 1e4)]],
+                         f"served Q6 {i}")
+
+        try:
+            served = _serve_run(torch, db, texts, refs, SERVE_CLIENTS,
+                                over_the_wire)
+        finally:
+            db.sql("set batch_serving_enabled = off")
+        b = serve["batched"]
+        served["in_process"] = {k: b[k] for k in ("statements_per_s",
+                                                  "p50_ms", "p99_ms")}
+        out["served"] = served
+        if served["batch_fallback_total"] \
+                or served["members"] <= served["dispatches"]:
+            raise AssertionError(f"served Q6 over the wire: {served}")
+        for cc in conns:
+            cc.close()
+            clients.remove(cc)
+
+        # ---- ps shows a held statement; cancel ends it, cause user -----
+        faults.inject("cancel_before_dispatch", "sleep", sleep_s=3.0,
+                      occurrences=1)
+        victim = {}
+
+        def held():
+            vc = SqlClient(sock)
+            victim["frame"] = vc.op({"sql": "-- wire-victim\n" + SQL_Q6})
+            vc.close()
+
+        th = threading.Thread(target=held)
+        try:
+            th.start()
+            sid = []
+
+            def seen():
+                sid[:] = [r["id"] for r in c.op({"op": "ps"})["rows"]
+                          if r["sql"].startswith("-- wire-victim")]
+                return bool(sid)
+
+            _wait_for(seen, what="ps to show the held statement")
+            if c.op({"op": "cancel", "id": sid[0]}) != {"ok": True}:
+                raise AssertionError("cancel frame refused")
+            th.join(timeout=30)
+        finally:
+            faults.reset("cancel_before_dispatch")
+        if victim["frame"].get("cancelled") != "user":
+            raise AssertionError(f"cancelled statement: {victim['frame']}")
+        out["cancel"] = {"cause": "user", "statement_id": sid[0]}
+
+        # ---- a client gone mid-statement --------------------------------
+        gone0 = counters.get("statements_cancelled_client_gone")
+        faults.inject("cancel_before_dispatch", "sleep", sleep_s=1.0,
+                      occurrences=1)
+        try:
+            s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            s.connect(sock)
+            s.sendall((json.dumps({"sql": "-- wire-gone\n" + SQL_Q6})
+                       + "\n").encode())
+            _wait_for(lambda: any(r["sql"].startswith("-- wire-gone")
+                                  for r in c.op({"op": "ps"})["rows"]),
+                      what="the gone client's statement")
+            s.close()
+            _wait_for(lambda: counters.get(
+                "statements_cancelled_client_gone") == gone0 + 1,
+                what="client_gone")
+        finally:
+            faults.reset("cancel_before_dispatch")
+        _check_frame(c.sql(SQL_Q6), q6_rows, "Q6 after a client left")
+        out["client_gone"] = counters.get(
+            "statements_cancelled_client_gone") - gone0
+
+        # ---- the mem and metrics ops ------------------------------------
+        mem = c.op({"op": "mem"})["mem"]
+        if not mem["device"] or mem["device"]["bytes_in_use"] <= 0:
+            raise AssertionError(f"mem op device stats: {mem['device']}")
+        measured = [e for e in mem["executables"] if e["measured"]]
+        if not measured:
+            raise AssertionError("mem op: no measured program")
+        text = c.op({"op": "metrics"})["text"]
+        for fam in ("ggtpu_device_bytes_in_use", "ggtpu_host_rss_bytes",
+                    "ggtpu_server_connections_total"):
+            if f"\n{fam} " not in "\n" + text:
+                raise AssertionError(f"metrics op lacks {fam}")
+        out["mem_op"] = {"device": mem["device"],
+                         "executables": len(mem["executables"]),
+                         "measured_executables": len(measured)}
+
+        # ---- measured admission of a warm Q1 ----------------------------
+        runs0 = counters.get("mem_analysis_runs")
+        adm = [db.sql(SQL_Q1).stats["mem"] for _ in range(3)]
+        if any(m["admitted_by"] != "measured" for m in adm) \
+                or counters.get("mem_analysis_runs") != runs0:
+            raise AssertionError(f"warm Q1 admission: {adm}, analysis runs "
+                                 f"{runs0} -> "
+                                 f"{counters.get('mem_analysis_runs')}")
+        m = adm[-1]
+        out["q1_admission"] = {
+            "admitted_by": m["admitted_by"],
+            "admitted_bytes": m["admitted_bytes"],
+            "est_bytes": m["est_bytes"],
+            "measured_x_nseg": m["measured"],
+            "measured_total": sum(m["measured"].values()),
+            "est_bytes_x_nseg": m["est_bytes"] * nseg}
+
+        # ---- a brownout from the card's allocator ------------------------
+        s0 = db.settings
+        enter, exit_ = float(s0.brownout_enter_pct), float(s0.brownout_exit_pct)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        st = memaccount.device_memory_stats()
+        total, used = st["bytes_limit"], st["bytes_in_use"]
+        free, _ = torch.cuda.mem_get_info()
+        need = int(enter * total) - used + (256 << 20)
+        if need > free - (4 << 30):
+            # the card's free memory cannot reach the default bar with room
+            # for Q6 left: a lower bar, stated in the line
+            enter = (used + free - (6 << 30)) / total
+            exit_ = enter - 0.1
+            db.sql(f"set brownout_enter_pct = {enter}")
+            db.sql(f"set brownout_exit_pct = {exit_}")
+            need = int(enter * total) - used + (256 << 20)
+        e0 = counters.get("brownout_entered_total")
+        ballast = torch.empty(need, dtype=torch.uint8, device="cuda")
+        try:
+            st1 = c.op({"op": "status"})
+            ov = st1["overload"]
+            if not ov["brownout"] or "device memory" not in (ov["reason"]
+                                                              or ""):
+                raise AssertionError(f"no brownout past the bar: {ov}")
+            db.sql("set batch_serving_enabled = on")
+            m0 = counters.get("batch_members_total")
+            r6 = db.sql(texts[0])
+            _check_q6(r6, refs[0], "Q6 in a brownout")
+            if r6.stats.get("batched") or \
+                    counters.get("batch_members_total") != m0:
+                raise AssertionError("a Q6 in a brownout was batched")
+            db.sql("set batch_serving_enabled = off")
+        finally:
+            del ballast
+            torch.cuda.empty_cache()
+        db.sql("set brownout_exit_s = 0")
+        st2 = c.op({"op": "status"})
+        if st2["overload"]["brownout"]:
+            raise AssertionError(f"brownout did not clear: {st2['overload']}")
+        db.sql("set brownout_exit_s = 5")
+        db.sql("set brownout_enter_pct = 0.92")
+        db.sql("set brownout_exit_pct = 0.80")
+        out["brownout"] = {
+            "enter_pct": enter, "exit_pct": exit_, "bytes_limit": total,
+            "ballast_bytes": need, "reason": ov["reason"],
+            "entered": counters.get("brownout_entered_total") - e0,
+            "q6_serial": True, "cleared": True}
+
+        # ---- max_connections = 2: a third connect is shed ---------------
+        for cc in list(clients):
+            cc.close()
+            clients.remove(cc)
+        _wait_for(lambda: counters.get("server_active_connections") == 0,
+                  what="the connections to close")
+        db.sql("set max_connections = 2")
+        shed0 = counters.get("connections_shed_total")
+        try:
+            a, b2 = client(), client()
+            a.sql("select 1")
+            b2.sql("select 1")
+            s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            s.connect(sock)
+            f = s.makefile("rb")
+            frame = json.loads(f.readline())
+            rest = f.readline()
+            f.close()
+            s.close()
+        finally:
+            db.sql("set max_connections = 100")
+        if frame.get("code") != "too_many_connections" or rest != b"" \
+                or counters.get("connections_shed_total") != shed0 + 1:
+            raise AssertionError(f"third connection: {frame}, {rest!r}")
+        out["connection_cap"] = {"max_connections": 2,
+                                 "third": frame["code"]}
+        for cc in (a, b2):
+            cc.close()
+            clients.remove(cc)
+
+        # ---- TCP with a user from auth.add_user -------------------------
+        auth.add_user(db.path, "wire_user", "wire-password")
+        tc = client(host="127.0.0.1", port=srv.port, user="wire_user",
+                    password="wire-password")
+        _check_frame(tc.sql(SQL_Q6), q6_rows, "Q6 over TCP")
+        refused = False
+        try:
+            SqlClient(host="127.0.0.1", port=srv.port, user="wire_user",
+                      password="not-it")
+        except PermissionError:
+            refused = True
+        if not refused:
+            raise AssertionError("a wrong password was accepted")
+        out["tcp"] = {"port": srv.port, "q6": "exact",
+                      "wrong_password": "refused"}
+
+        # ---- stop() with a statement in flight --------------------------
+        faults.inject("cancel_before_dispatch", "sleep", sleep_s=1.0,
+                      occurrences=1)
+        last = {}
+
+        def in_flight():
+            last["frame"] = tc.op({"sql": "-- wire-drain\n" + SQL_Q6})
+
+        th = threading.Thread(target=in_flight)
+        try:
+            th.start()
+            _wait_for(lambda: any(r["sql"].startswith("-- wire-drain")
+                                  for r in REGISTRY.snapshot()),
+                      what="the drain victim")
+            t = time.perf_counter()
+            srv.stop()
+            drain_s = time.perf_counter() - t
+            th.join(timeout=30)
+        finally:
+            faults.reset("cancel_before_dispatch")
+        if last.get("frame", {}).get("cancelled") != "shutdown":
+            raise AssertionError(f"statement at stop(): {last}")
+        left = [x.name for x in threading.enumerate()
+                if x.name.startswith(("gg-server", "gg-client-watch"))]
+        if left:
+            raise AssertionError(f"server threads left: {left}")
+        out["drain"] = {"cancelled": "shutdown", "stop_s": drain_s,
+                        "threads_left": 0}
+    finally:
+        srv.stop()
+        for cc in clients:
+            try:
+                cc.close()
+            except OSError:
+                pass
+        overload.CONTROLLER.reset()
+    out.update(fused_dense_agg_launches=launches,
+               q1_kernel_ms=form["ms"], q1_kernel_bound_ms=form["bound_ms"],
+               ok=True)
+    emit(out)
+    return launches, form
 
 
 def main() -> int:
@@ -2252,37 +2776,46 @@ def main() -> int:
     del q1_table
     torch.cuda.empty_cache()
     join_launches = phase_joins(torch, data, db, args.nseg, args.reps, name,
-                                args.profile)
+                                args.profile, require_fused=args.sf >= 10)
     torch.cuda.empty_cache()
     window_launches, rollup_launches, forms = phase_windows(
         torch, data, db, args.nseg, args.reps, name, args.profile)
     torch.cuda.empty_cache()
     spill_launches, pass_form = phase_spill(torch, data, db, args.nseg,
-                                            args.reps, name)
+                                            args.reps, name,
+                                            require_fused=args.sf >= 10)
     torch.cuda.empty_cache()
-    serve_launches = phase_serve(torch, data, db, args.nseg, args.seed,
-                                 name)
+    serve_launches, served = phase_serve(torch, data, db, args.nseg,
+                                         args.seed, name)
+    torch.cuda.empty_cache()
+    wire_launches, wire_form = phase_wire(torch, data, db, args.nseg,
+                                          args.reps, args.seed, name,
+                                          smi_line, served)
     db.close()
     del data, db
     torch.cuda.empty_cache()
-    # the spill phase is this slice's main path: the kernel's numbers are
-    # those of a spilled Q1 pass's job table (Q1's table and the ROLLUP's
-    # two tables, summed per statement, kept beside them); the windows,
-    # joins, SQL Q1/Q6 and physical-plan paths stay, each read as it was
-    # driven
+    # the wire phase is this slice's main path: the kernel's numbers are
+    # those of the job table SQL Q1 over the wire handed it; the spilled
+    # pass's table, the synthetic Q1 table and the ROLLUP's two tables
+    # (summed per statement) stay beside them, and every earlier path is
+    # read as it was driven
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     kernel["q1_table"] = {k: kernel[k] for k in keys}
+    kernel["spill_pass_table"] = {k: pass_form[k] for k in keys}
     kernel["rollup_tables"] = {
         k: (None if any(f[k] is None for f in forms)
             else sum(f[k] for f in forms)) for k in keys}
-    kernel.update({k: pass_form[k] for k in keys})
-    kernel["max_abs_err"] = max([kernel["max_abs_err"], pass_form[
-        "max_abs_err"]] + [f["max_abs_err"] for f in forms])
-    kernel["measured_at"] = ("one spilled SQL Q1 pass's job table (a "
-                             "lineitem chunk)")
-    kernel["launches"] = spill_launches
+    kernel.update({k: wire_form[k] for k in keys})
+    kernel["max_abs_err"] = max(
+        e for e in [kernel["max_abs_err"], pass_form["max_abs_err"],
+                    wire_form["max_abs_err"]]
+        + [f["max_abs_err"] for f in forms] if e is not None)
+    kernel["measured_at"] = ("the job table SQL Q1 over the server's "
+                             "socket hands the kernel")
+    kernel["launches"] = wire_launches
     kernel["launches_per_sql_rollup"] = rollup_launches
-    kernel["launches_by_path"] = {"sql_serve": serve_launches,
+    kernel["launches_by_path"] = {"sql_wire": wire_launches,
+                                  "sql_serve": serve_launches,
                                   "sql_spill": spill_launches,
                                   "sql_windows": window_launches,
                                   "sql_q12": join_launches,

@@ -98,6 +98,52 @@ class Settings:
     batch_window_ms: float = 2.0
     batch_max_width: int = 16
     batch_queue_limit: int = 512
+    # mid-flight enforcement (runtime/runaway.py, the vmem tracker and
+    # runaway cleaner): a ceiling on the SUM of in-flight statements'
+    # admitted bytes; crossing runaway_red_zone x this flags the heaviest
+    # statement, which dies at its next cancellation point. 0 = off
+    vmem_global_limit_mb: int = 0
+    runaway_red_zone: float = 0.9
+    # measured memory accounting (runtime/memaccount.py): per-statement
+    # owner trees, the first launch of each cached program measured on the
+    # card, and admission by the measured bytes once they exist (the
+    # estimate governs on the CPU, which has no allocator to read)
+    mem_accounting_enabled: bool = True
+    # ---- overload protection (runtime/server.py, runtime/overload.py) --
+    # concurrent client connections (0 = unlimited): an excess connect
+    # gets one typed too_many_connections frame and the socket closes
+    max_connections: int = 100
+    # the TCP auth handshake's deadline (0 = off)
+    client_auth_deadline_s: float = 10.0
+    # idle read deadline between statements (0 = off)
+    client_idle_timeout_s: float = 0.0
+    # one request frame's bound: past it, frame_too_large and a close
+    max_frame_bytes: int = 64 << 20
+    # SqlServer.stop(): how long in-flight statements get to end after
+    # they are flagged shutdown, before their sockets are force-closed
+    server_drain_s: float = 5.0
+    # load shedding (runtime/resqueue.shed_check, for the resource queue
+    # and the groups): statements WAITING for a slot; at the cap a new
+    # one is refused with the typed, retryable AdmissionShed, from
+    # admission_shed_ramp x cap on with rising probability. 0 = queue
+    admission_queue_limit: int = 0
+    admission_shed_ramp: float = 0.75
+    # the memory-pressure brownout (runtime/overload.py): the card's
+    # allocated bytes at brownout_enter_pct of its memory (or
+    # brownout_oom_events OOMs within brownout_window_s) enter it; batch
+    # serving stops and the admission ceiling scales by
+    # brownout_vmem_factor (brownout_cache_factor scales the block cache,
+    # which comes with durable storage, ROADMAP Queue 1 item 1a). It
+    # clears once every signal stays below brownout_exit_pct for
+    # brownout_exit_s
+    brownout_enabled: bool = True
+    brownout_enter_pct: float = 0.92
+    brownout_exit_pct: float = 0.80
+    brownout_oom_events: int = 3
+    brownout_window_s: float = 30.0
+    brownout_exit_s: float = 5.0
+    brownout_cache_factor: float = 0.5
+    brownout_vmem_factor: float = 0.5
 
     def set(self, name: str, value) -> None:
         if not hasattr(self, name) or name.startswith("_"):

@@ -33,7 +33,24 @@ greengage_tpu/exec/executor.py.
 
 A ``torch.OutOfMemoryError`` anywhere in staging or the program demotes
 the statement to the spill passes once (``oom_spill_retry``); a second
-one, or one inside a pass, raises ``OutOfDeviceMemory``.
+one, or one inside a pass, raises ``OutOfDeviceMemory`` with the
+statement's memory account (runtime/memaccount.py).
+
+Measured admission (the JAX executor's ``_ensure_mem_analysis`` and
+``_admission_bytes``): torch has no analysis of a program before it runs,
+so the first launch of each cached program (a plan-cache key at its
+version, tier and cap hints, with no retry or spill override in flight)
+is measured instead: its staged inputs, its outputs and the allocator's
+peak above what was allocated before the launch, kept in ``_programs``
+and reused by every warm run (``mem_analysis_runs`` counts measurements).
+A launch is measured only when no other statement's device work runs
+beside it (the allocator's peak counter is process-wide); otherwise a
+later run measures it. Admission charges the measured bytes per segment
+once they exist and the card reported a peak above the launch's inputs
+and outputs, the estimate otherwise: on the CPU, which has no allocator
+to read, always the estimate. The admitted bytes also price the
+statement in the runaway tracker (runtime/runaway.py), and a brownout
+(runtime/overload.py) scales the ceiling down.
 
 Cancellation points (runtime/interrupt.py) sit where the JAX executor
 has them: each retry-tier boundary, right before the program launches
@@ -87,11 +104,14 @@ from greengage_tpu_torch.exec.compile import (
 from greengage_tpu_torch.ops import sort as sort_ops
 from greengage_tpu_torch.ops.batch import Batch
 from greengage_tpu_torch.planner.logical import Plan, Scan
-from greengage_tpu_torch.runtime import interrupt
+from greengage_tpu_torch.runtime import interrupt, memaccount
+from greengage_tpu_torch.runtime import overload as _overload
 from greengage_tpu_torch.runtime import trace as _trace
 from greengage_tpu_torch.runtime.faultinject import faults
-from greengage_tpu_torch.runtime.logger import counters
+from greengage_tpu_torch.runtime.logger import (DEFAULT_BUCKETS_MB, counters,
+                                                histograms)
 from greengage_tpu_torch.runtime.resgroup import current_memory_limit_mb
+from greengage_tpu_torch.runtime.runaway import TRACKER
 
 
 class QueryError(RuntimeError):
@@ -117,13 +137,16 @@ class BatchFallback(Exception):
 class OutOfDeviceMemory(QueryError):
     """The device allocator refused the statement after admission let it
     through, and no demotion to the spill passes was allowed or possible.
-    Carries the admission estimate and the allocator's counters."""
+    Carries the statement's accounting snapshot (with the allocator's
+    counters under "device_stats"), the program's measurement when one
+    exists, and the admission estimate."""
 
-    def __init__(self, message: str, est_bytes: int = 0,
-                 device_stats: dict | None = None):
+    def __init__(self, message: str, snapshot: dict | None = None,
+                 mem_analysis: dict | None = None, est_bytes: int = 0):
         super().__init__(message)
+        self.snapshot = snapshot or {}
+        self.mem_analysis = mem_analysis
         self.est_bytes = int(est_bytes)
-        self.device_stats = device_stats or {}
 
 
 def segments_per_device(layout) -> int:
@@ -156,6 +179,24 @@ def effective_limit_bytes(settings, layout=None) -> int:
 class _SpillNeeded(Exception):
     """Admission refused a statement that may spill: raised out of the
     tier loop so the passes start with the loop's tensors released."""
+
+
+@dataclass
+class _ProgramMem:
+    """What the executor keeps of a cached program: its compiled estimate
+    and the measurement of its first measured launch (None until then)."""
+
+    est_bytes: int
+    mem_analysis: dict | None = None
+
+
+def _nbytes(tensors) -> int:
+    return sum(int(t.numel()) * t.element_size() for t in tensors)
+
+
+def _output_bytes(out: ProgramOutput) -> int:
+    return _nbytes([out.sel, *out.cols.values(), *out.valids.values(),
+                    *out.flags.values(), *out.metrics.values()])
 
 
 @dataclass
@@ -319,7 +360,7 @@ def present(comp: CompileResult, rows: dict, flags: dict, metrics: dict,
 def run_tiers(plan, tables: dict, layout, settings,
               consts: dict | None = None, dictionary=None,
               no_direct: bool = False, cap_overrides: dict | None = None,
-              stage=None, admit=None, raw: bool = False) -> Result:
+              stage=None, admit=None, launch=None, raw: bool = False) -> Result:
     """Compile ``plan`` over ``tables`` and run it, retrying on overflow as
     the JAX executor's _run_tiers does: a capacity overflow re-runs at the
     next tier (capacities x4), sized from the exact count where the device
@@ -330,8 +371,11 @@ def run_tiers(plan, tables: dict, layout, settings,
     the exact-count sizes (the executor's cap hints).
 
     ``tables`` are the staged tables, or only their shapes when
-    ``stage(comp)`` stages them after each compile; ``admit(comp)`` runs
-    between the compile and the staging and raises to refuse."""
+    ``stage(comp)`` stages them after each compile; ``admit(comp, sig)``
+    runs between the compile and the staging and raises to refuse (``sig``
+    = the attempt's tier, its cap overrides and its unpacked nodes: what
+    names the program), and ``launch(comp, tables)`` runs the program in
+    its place (the executor measures first launches there)."""
     t0 = time.perf_counter()
     tier = 0
     attempts = 0
@@ -350,10 +394,13 @@ def run_tiers(plan, tables: dict, layout, settings,
         compiler = Compiler(layout, tables, settings, consts, dictionary,
                             tier=tier, cap_overrides=cap_overrides,
                             pack_disabled=pack_disabled, no_direct=no_direct)
+        t_comp = time.perf_counter()
         with _trace.span("compile", cat="exec", tier=tier):
             comp = compiler.compile(plan)
+        compile_ms = (time.perf_counter() - t_comp) * 1e3
         if admit is not None:
-            admit(comp)
+            admit(comp, (tier, tuple(sorted(cap_overrides.items())),
+                         tuple(sorted(pack_disabled))))
         staged = stage(comp) if stage is not None else tables
         # the last cancellation point before the launch: once the
         # program is on the device it runs to its end
@@ -361,6 +408,7 @@ def run_tiers(plan, tables: dict, layout, settings,
         interrupt.check_interrupts()
         # the span ends at the host's read of the flags, which waits for
         # the program
+        t_disp = time.perf_counter()
         with _trace.span("dispatch", cat="device", tier=tier,
                          est_bytes=comp.est_bytes):
             if faults.check("device_oom"):
@@ -369,9 +417,11 @@ def run_tiers(plan, tables: dict, layout, settings,
                 raise torch.OutOfMemoryError(
                     f"out of memory while allocating {comp.est_bytes} "
                     "bytes per segment (fault injected: device_oom)")
-            out = comp.program(staged)
+            out = (launch(comp, staged) if launch is not None
+                   else comp.program(staged))
             _, _, sel = _gather_rows(comp, out)
             host = _flag_tensor(out, comp, sel.sum()).cpu().numpy()
+        dispatch_ms = (time.perf_counter() - t_disp) * 1e3
         nflags = len(comp.flag_names)
         flags = {n: bool(v) for n, v in zip(comp.flag_names, host[:nflags])}
         live = int(host[nflags])
@@ -386,9 +436,11 @@ def run_tiers(plan, tables: dict, layout, settings,
                 "(PK-FK) hash joins are supported in this version")
         overflow = [n for n, v in flags.items() if v]
         if not overflow:
+            t_fetch = time.perf_counter()
             with _trace.span("fetch", cat="device", rows=live):
                 res = present(comp, gather(comp, out, compiler, live),
                               flags, metrics, compiler, raw=raw)
+            fetch_ms = (time.perf_counter() - t_fetch) * 1e3
             res.wall_ms = (time.perf_counter() - t0) * 1e3
             res.cap_needs = {nid: int(metrics[m].max())
                              for nid, m in comp.flag_caps.values()
@@ -400,7 +452,9 @@ def run_tiers(plan, tables: dict, layout, settings,
                          "metrics": {k: int(v.sum()) if k.startswith("nrows_")
                                      else int(v.max())
                                      for k, v in metrics.items()},
-                         "mem": {"est_bytes": int(comp.est_bytes)}}
+                         "mem": {"est_bytes": int(comp.est_bytes)},
+                         "compile_ms": compile_ms, "dispatch_ms": dispatch_ms,
+                         "fetch_ms": fetch_ms}
             return res
         retried.append(overflow)
         # a packing violation re-runs the SAME tier with that node
@@ -460,6 +514,11 @@ class Executor:
         # statements (and the batch server's stager): their reads and
         # writes, and a table's cold staging, run under this lock
         self._cache_mu = threading.RLock()
+        # the cached programs (measured admission): (plan-cache key,
+        # store version, tier, cap overrides, no_direct) -> _ProgramMem,
+        # LRU within plan_cache_size and dropped with their statement's
+        # cap hints
+        self._programs: OrderedDict = OrderedDict()
         self._spill_dir: str | None = None
 
     # ---- lifetime ------------------------------------------------------
@@ -476,6 +535,7 @@ class Executor:
         with self._cache_mu:
             self._stage_cache.clear()
             self._cap_hints.clear()
+            self._programs.clear()
         if self._spill_dir is not None:
             self._spill_dir_rm()
             self._spill_dir = None
@@ -486,9 +546,12 @@ class Executor:
                 del self._stage_cache[k]
 
     def forget(self, cache_key) -> None:
-        """Drop a statement's cap hints (its bound plan left the cache)."""
+        """Drop a statement's cap hints and its cached programs (its bound
+        plan left the cache)."""
         with self._cache_mu:
             self._cap_hints.pop(cache_key, None)
+            for k in [k for k in self._programs if k[0] == cache_key]:
+                del self._programs[k]
 
     def _dictionary(self, ref):
         return self.store.dictionary(*ref).values
@@ -504,7 +567,23 @@ class Executor:
         -> the (lo, hi) slice of each segment's rows this pass reads),
         ``aux_tables`` (name -> (cols, valids) of captured host rows),
         ``allow_spill`` False inside a pass, ``prefetcher`` building the
-        next pass's host buffers."""
+        next pass's host buffers.
+
+        The statement holds an entry in the runaway tracker for the whole
+        run (nested spill passes share it) and marks its device work for
+        the measurement of first launches (memaccount.device_work)."""
+        TRACKER.enter()
+        try:
+            with memaccount.device_work():
+                return self._run(plan, consts, cache_key, raw,
+                                 scan_cap_override, row_ranges, aux_tables,
+                                 allow_spill, no_direct, prefetcher)
+        finally:
+            TRACKER.release()
+
+    def _run(self, plan, consts, cache_key, raw, scan_cap_override,
+             row_ranges, aux_tables, allow_spill, no_direct,
+             prefetcher) -> Result:
         t0 = time.perf_counter()
         snapshot = self.store.manifest.snapshot()
         version = snapshot.get("version", 0)
@@ -520,19 +599,53 @@ class Executor:
             if hints:
                 self._cap_hints.move_to_end(cache_key)
         consts = self._with_params(consts)
-        limit = effective_limit_bytes(self.settings, self.layout)
+        # a brownout scales the ceiling down: borderline statements take
+        # the spill passes instead of racing a pressured allocator
+        limit = _overload.CONTROLLER.scaled_vmem(
+            effective_limit_bytes(self.settings, self.layout))
+        # a cached program: the plan-cache key's statement at its hints,
+        # no spill override in flight
+        cacheable = cache_key is not None and not overrides and not ranges \
+            and not aux
+        hint_sig = tuple(sorted(hints.items()))
+        mem_on = bool(self.settings.mem_accounting_enabled)
         last: dict = {}
         stage_s = [0.0]
 
-        def admit(comp):
-            last["comp"] = comp
-            if limit and comp.est_bytes > limit:
+        def admit(comp, sig):
+            tier, caps, packs = sig
+            prog = None
+            if cacheable and caps == hint_sig and not packs:
+                prog = self._program((cache_key, version, tier, caps,
+                                      no_direct), comp)
+            admit_bytes, measured = self._admission_bytes(comp, prog)
+            last.update(comp=comp, prog=prog, admit_bytes=admit_bytes,
+                        measured=measured)
+            if limit and admit_bytes > limit:
                 if allow_spill:
                     raise _SpillNeeded
                 raise AdmissionError(
-                    f"query would allocate ~{comp.est_bytes >> 20} MB per "
+                    f"query would allocate ~{admit_bytes >> 20} MB per "
                     f"segment, above the {limit >> 20} MB memory ceiling "
                     "(raise vmem_protect_limit_mb or reduce the data)")
+            # mid-flight enforcement: ledger what this statement will hold
+            # (the spill decision made), run the red-zone scan, and take a
+            # cancellation aimed at this statement
+            TRACKER.reprice(admit_bytes,
+                            int(self.settings.vmem_global_limit_mb) << 20,
+                            float(self.settings.runaway_red_zone),
+                            measured=measured)
+            TRACKER.check()
+            acct = memaccount.ACCOUNTS.current()
+            if acct is not None:
+                acct.set_device(prog.mem_analysis if prog else None,
+                                comp.est_bytes)
+
+        def launch(comp, tables):
+            prog = last.get("prog")
+            if prog is None or prog.mem_analysis is not None or not mem_on:
+                return comp.program(tables)
+            return self._measure(comp, prog, tables, consts)
 
         def stage(comp):
             t = time.perf_counter()
@@ -547,7 +660,7 @@ class Executor:
             res = run_tiers(plan, shapes, self.layout, self.settings, consts,
                             self._dictionary, no_direct=no_direct,
                             cap_overrides=hints, stage=stage, admit=admit,
-                            raw=raw)
+                            launch=launch, raw=raw)
         except _SpillNeeded:
             res = None
         except torch.OutOfMemoryError as e:
@@ -558,8 +671,10 @@ class Executor:
             comp = last.get("comp")
             est = comp.est_bytes if comp is not None else 0
             if oom_msg is not None:
-                return self._handle_oom(oom_msg, est, plan, consts, raw,
-                                        allow_spill, t0)
+                prog = last.get("prog")
+                return self._handle_oom(
+                    oom_msg, est, prog.mem_analysis if prog else None, plan,
+                    consts, raw, allow_spill, t0)
             from greengage_tpu_torch.exec import spill
 
             try:
@@ -576,7 +691,13 @@ class Executor:
         res.wall_ms = (time.perf_counter() - t0) * 1e3
         res.stats["stage_ms"] = stage_s[0] * 1e3
         res.stats["wall_ms"] = res.wall_ms
-        res.stats["mem"] = self._mem_stats(res.stats["mem"]["est_bytes"])
+        res.stats["mem"] = self._mem_stats(
+            res.stats["mem"]["est_bytes"], last["admit_bytes"],
+            last["measured"], last["prog"])
+        histograms.observe("stage_ms", res.stats["stage_ms"])
+        histograms.observe("dispatch_ms", res.stats["dispatch_ms"])
+        histograms.observe("fetch_ms", res.stats["fetch_ms"])
+        histograms.observe("compile_latency_ms", res.stats["compile_ms"])
         return res
 
     def run_single(self, plan, consts, raw=False, scan_cap_override=None,
@@ -690,7 +811,8 @@ class Executor:
         # another's rows (the JAX package drops its parameter-valued
         # prune predicates here)
         with _trace.span("stage", cat="stage", tables=len(shapes),
-                         batch_width=width, batch_bucket=bucket):
+                         batch_width=width, batch_bucket=bucket), \
+                memaccount.device_work():
             tables = self._stage(plan, snapshot, shapes, {}, {}, None)
         return comp, tables, compiler, True
 
@@ -703,7 +825,8 @@ class Executor:
         ("c", id), ("v", id), "sel", ("f", flag), ("m", metric)."""
         with _trace.span("dispatch", cat="device",
                          batch_width=comp.batch_width,
-                         est_bytes=comp.est_bytes) as sp:
+                         est_bytes=comp.est_bytes) as sp, \
+                memaccount.device_work():
             faults.check("batch_dispatch")
             err = None
             try:
@@ -779,17 +902,106 @@ class Executor:
             out.append(res)
         return out
 
-    def _mem_stats(self, est_bytes: int) -> dict:
+    # ---- measured memory accounting (runtime/memaccount.py) -------------
+    def _program(self, key, comp) -> _ProgramMem:
+        """The cached program under ``key`` (made on its first run, a
+        ``program_cache_miss``; a ``program_cache_hit`` after), moved to
+        the LRU's end."""
+        with self._cache_mu:
+            prog = self._programs.get(key)
+            hit = prog is not None
+            if hit:
+                self._programs.move_to_end(key)
+            else:
+                prog = self._programs[key] = _ProgramMem(int(comp.est_bytes))
+                bound = max(int(self.settings.plan_cache_size), 1)
+                while len(self._programs) > bound:
+                    self._programs.popitem(last=False)
+        counters.inc("program_cache_hit" if hit else "program_cache_miss")
+        return prog
+
+    def _measure(self, comp, prog: _ProgramMem, tables, consts):
+        """Launch a cached program for the first time, measured: its staged
+        inputs (tables and parameters), its outputs, and the allocator's
+        peak above what was allocated before the launch less the outputs
+        (the peak holds them), so the three sum to the inputs plus the
+        launch's growth. Kept only when no other statement's device work
+        ran beside it; otherwise the program stays unmeasured until a
+        later run. -> the program's output."""
+        dev = self.layout.device
+        epoch = memaccount.exclusive_epoch()
+        if epoch is None:
+            return comp.program(tables)
+        base = memaccount.peak_begin(dev)
+        out = comp.program(tables)
+        peak = memaccount.peak_read(dev) if base is not None else None
+        if not memaccount.still_exclusive(epoch):
+            return out
+        inputs = [t for td in tables.values()
+                  for t in (*td.cols.values(), td.present)]
+        params = (consts or {}).get("@params@rt")
+        if params is not None:
+            inputs.append(params)
+        out_bytes = _output_bytes(out)
+        temp = (max(peak - base - out_bytes, 0)
+                if base is not None and peak is not None else 0)
+        analysis = {"argument_bytes": _nbytes(inputs),
+                    "output_bytes": out_bytes, "temp_bytes": temp}
+        with self._cache_mu:
+            if prog.mem_analysis is not None:
+                return out
+            prog.mem_analysis = analysis
+        counters.inc("mem_analysis_runs")
+        total = sum(analysis.values())
+        histograms.observe("executable_mem_mb", total / 1e6,
+                           buckets=DEFAULT_BUCKETS_MB)
+        # the measurement covers every segment on the card: compare it
+        # with the estimate of those segments
+        est_dev = comp.est_bytes * segments_per_device(self.layout)
+        if est_dev > 0:
+            counters.set("mem_est_error_pct",
+                         int(round(100.0 * (total - est_dev) / est_dev)))
+        acct = memaccount.ACCOUNTS.current()
+        if acct is not None:
+            acct.set_device(analysis, comp.est_bytes)
+        return out
+
+    def _admission_bytes(self, comp, prog: _ProgramMem | None
+                         ) -> tuple[int, bool]:
+        """Bytes admission and the runaway ledger charge for this program
+        -> (bytes per segment, measured?). The measured bytes once the
+        program was measured and the card reported a peak (temp_bytes > 0;
+        an allocator to read: device_memory_stats()), else the compiled
+        estimate. A CPU device has no allocator to read, so the estimate
+        governs there, as on the JAX CPU backend."""
+        ma = prog.mem_analysis if prog is not None else None
+        if ma and bool(self.settings.mem_accounting_enabled) \
+                and ma["temp_bytes"] > 0 \
+                and memaccount.device_memory_stats() is not None:
+            measured = sum(ma.values()) // segments_per_device(self.layout)
+            if measured > 0:
+                counters.inc("admission_measured_total")
+                return measured, True
+        counters.inc("admission_estimated_total")
+        return int(comp.est_bytes), False
+
+    def _mem_stats(self, est_bytes: int, admit_bytes: int, measured: bool,
+                   prog: _ProgramMem | None) -> dict:
         """The Result.stats["mem"] block: the estimate, what admission
-        charged (the estimate: the port has no measured admission yet,
-        ROADMAP Queue 1 item 7) and, on a card, the allocator's counters."""
-        out = {"est_bytes": int(est_bytes), "admitted_bytes": int(est_bytes),
-               "admitted_by": "estimate"}
-        if self.layout.device.type == "cuda":
-            out["device_bytes_in_use"] = int(
-                torch.cuda.memory_allocated(self.layout.device))
-            out["device_peak_bytes_in_use"] = int(
-                torch.cuda.max_memory_allocated(self.layout.device))
+        charged and by which, the program's measurement, the allocator's
+        counters (on a card) and the statement's owner totals."""
+        out = {"est_bytes": int(est_bytes), "admitted_bytes": int(admit_bytes),
+               "admitted_by": "measured" if measured else "estimate",
+               "measured": (dict(prog.mem_analysis)
+                            if prog is not None and prog.mem_analysis
+                            else None)}
+        dstats = memaccount.device_memory_stats()
+        if dstats is not None:
+            out["device_bytes_in_use"] = dstats["bytes_in_use"]
+            out["device_peak_bytes_in_use"] = dstats["peak_bytes_in_use"]
+        acct = memaccount.ACCOUNTS.current()
+        if acct is not None:
+            out["owners"] = acct.owner_totals()
         return out
 
     # ---- spill and out-of-memory ---------------------------------------
@@ -824,20 +1036,21 @@ class Executor:
         res.stats["wall_ms"] = res.wall_ms
         return res
 
-    def _handle_oom(self, msg, est_bytes, plan, consts, raw, allow_spill,
-                    t0) -> Result:
-        """The allocator refused the statement: demote to the spill path
-        once when allowed (``oom_spill_retry``), else raise the typed
-        OutOfDeviceMemory."""
+    def _handle_oom(self, msg, est_bytes, mem_analysis, plan, consts, raw,
+                    allow_spill, t0) -> Result:
+        """The allocator refused the statement: build the typed
+        OutOfDeviceMemory (the statement's accounting snapshot with the
+        allocator's counters, the program's measurement), then demote to
+        the spill path once when allowed (``oom_spill_retry``), else
+        raise it."""
         counters.inc("oom_events")
-        stats = {}
-        if self.layout.device.type == "cuda":
-            stats = {"bytes_in_use": int(torch.cuda.memory_allocated()),
-                     "peak_bytes_in_use": int(
-                         torch.cuda.max_memory_allocated())}
+        acct = memaccount.ACCOUNTS.current()
+        snap = acct.snapshot() if acct is not None else {}
+        snap["device_stats"] = memaccount.device_memory_stats()
         oom = OutOfDeviceMemory(
             f"out of device memory (estimated ~{est_bytes >> 20} MB per "
-            f"segment): {msg}", est_bytes=est_bytes, device_stats=stats)
+            f"segment): {msg}", snapshot=snap, mem_analysis=mem_analysis,
+            est_bytes=est_bytes)
         if allow_spill and bool(self.settings.oom_spill_retry):
             from greengage_tpu_torch.exec import spill
 
@@ -924,6 +1137,7 @@ class Executor:
         cap = shape.capacity
         if table in aux:
             t = self._upload(self._aux_buffers(want, cap, aux[table]), cap)
+            memaccount.charge("staging", _nbytes(t.values()), item=table)
         elif table in ranges:
             rng = ranges[table]
             bufs = (prefetcher.take(table, rng)
@@ -933,6 +1147,7 @@ class Executor:
             if prefetcher is not None:
                 prefetcher.kick()
             t = self._upload(bufs, cap)
+            memaccount.charge("staging", _nbytes(t.values()), item=table)
         else:
             with self._cache_mu:
                 missing = [c for c in want + ["@present"]
@@ -942,6 +1157,8 @@ class Executor:
                     staged = self._upload(self.host_buffers(
                         table, [c for c in missing if c != "@present"], cap,
                         snapshot, None), cap)
+                    memaccount.charge("staging", _nbytes(staged.values()),
+                                      item=table)
                     self._stage_cache.update(
                         {(table, c, cap, version): v
                          for c, v in staged.items() if c in missing})
@@ -964,6 +1181,9 @@ class Executor:
         # each unit is a cancellation point, and the raise travels back to
         # the statement's thread through the unit's result
         stmt_ctx = interrupt.REGISTRY.current()
+        # the statement's memory account travels the same way: a unit's
+        # pool thread binds to it for the unit's duration
+        stmt_acct = memaccount.ACCOUNTS.current()
         dtypes = {"@present": np.dtype(bool)}
         for c in names:
             dtypes[c] = (np.dtype(bool) if c.startswith(VALID_PREFIX)
@@ -976,8 +1196,9 @@ class Executor:
             faults.check("cancel_in_staging", segment=seg)
             if stmt_ctx is not None:
                 stmt_ctx.check()
-            cols, valids, n = self.store.read_segment(table, seg, storage,
-                                                      snapshot)
+            with memaccount.ACCOUNTS.bind(stmt_acct):
+                cols, valids, n = self.store.read_segment(table, seg,
+                                                          storage, snapshot)
             lo = 0
             if rng is not None:
                 lo, n = rng[0], max(min(n, rng[1]) - rng[0], 0)

@@ -11,11 +11,13 @@ is kept per literal-stripped statement shape and store version, so a
 repeat skips bind and plan.
 
 One Database serves many threads at once, as the JAX session does (one
-thread per connection): each statement's plan-cache outcome is kept per
-thread, and the bound-plan LRU (and the executor's caches) are locked.
-Every statement registers a ``StatementContext`` (runtime/interrupt.py:
-``statement_timeout_s``, cancel by id through ``REGISTRY.cancel``) and a
-trace (runtime/trace.py) and waits for its resource group's and the
+thread per connection, runtime/server.py): each statement's plan-cache
+outcome is kept per thread, and the bound-plan LRU (and the executor's
+caches) are locked. Every statement registers a ``StatementContext``
+(runtime/interrupt.py: ``statement_timeout_s``, cancel by id through
+``REGISTRY.cancel``), a trace (runtime/trace.py) and a memory account
+(runtime/memaccount.py), evaluates the brownout controller
+(runtime/overload.py), and waits for its resource group's and the
 resource queue's admission (runtime/resgroup.py, runtime/resqueue.py)
 before it runs. With ``batch_serving_enabled`` a parameterised SELECT
 joins its shape's admission window in the batch server
@@ -36,11 +38,15 @@ never a wrong answer.
 
 from __future__ import annotations
 
+import json
+import os
+import shutil
+import tempfile
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from contextlib import ExitStack
-from functools import partial
 
 import numpy as np
 import torch
@@ -51,15 +57,17 @@ from greengage_tpu_torch import types as T
 from greengage_tpu_torch.catalog import (Catalog, Column, DistPolicy,
                                          PolicyKind, TableSchema)
 from greengage_tpu_torch.config import Settings
-from greengage_tpu_torch.exec.executor import (Executor, QueryError,
-                                               Result)
+from greengage_tpu_torch.exec.executor import (Executor, OutOfDeviceMemory,
+                                               QueryError, Result)
 from greengage_tpu_torch.parallel.mesh import make_layout
 from greengage_tpu_torch.planner import cost as _cost
 from greengage_tpu_torch.planner import plan_query
+from greengage_tpu_torch.runtime import memaccount as _memaccount
+from greengage_tpu_torch.runtime import overload as _overload
 from greengage_tpu_torch.runtime import trace as _trace
 from greengage_tpu_torch.runtime.interrupt import REGISTRY as _INTERRUPTS
 from greengage_tpu_torch.runtime.interrupt import StatementCancelled
-from greengage_tpu_torch.runtime.logger import counters, histograms
+from greengage_tpu_torch.runtime.logger import ClusterLog, counters, histograms
 from greengage_tpu_torch.runtime.resgroup import ResourceGroupManager
 from greengage_tpu_torch.runtime.resqueue import ResourceQueue
 from greengage_tpu_torch.runtime.trace import TRACES as _TRACES
@@ -89,13 +97,6 @@ _LATER = {
 }
 
 
-def allocated_bytes(index: int) -> int:
-    """The caching allocator's allocated bytes on card ``index`` (what
-    ``torch.cuda.memory_allocated`` returns)."""
-    return int(torch._C._cuda_memoryStats(index)["allocated_bytes"]["all"]
-               ["current"])
-
-
 class Database:
     def __init__(self, path: str | None = None, numsegments: int | None = None,
                  mirrors: bool = False, multihost=None, device=None):
@@ -108,6 +109,15 @@ class Database:
         if multihost is not None:
             raise NotImplementedError("multi-GPU: ROADMAP Queue 1 item 8")
         self.device = resolve_device(device)
+        # a scratch directory of the Database's own, as the JAX session
+        # makes for a database without a path: it holds the cluster log
+        # and the TCP users' file (runtime/auth.py), and goes at close
+        self.path = tempfile.mkdtemp(prefix="ggtpu_")
+        self._path_rm = weakref.finalize(self, shutil.rmtree, self.path,
+                                         ignore_errors=True)
+        self.log = ClusterLog(self.path)
+        # the brownout state this Database last saw (_overload_tick)
+        self._overload_seen = False
         if numsegments is None:
             # one segment per visible device, as the JAX session takes one
             # per visible chip
@@ -147,16 +157,6 @@ class Database:
         # batch_serving_enabled is on
         self._batch_server = None
         self._batch_server_mu = threading.Lock()
-        if self.device.type == "cuda":
-            # spans carry the card's allocated bytes at their ends: the
-            # counter torch.cuda.memory_allocated reads, taken from the
-            # allocator's stats without the flattening of every other
-            # stat that costs memory_allocated ~7x as much (chip_smoke's
-            # serve phase times both)
-            idx = self.device.index
-            _trace.set_mem_sampler(partial(
-                allocated_bytes,
-                torch.cuda.current_device() if idx is None else idx))
 
     def _motion_overlap_factor(self) -> float:
         """Redistribute overlap credit from motion_pipeline_buckets
@@ -178,17 +178,25 @@ class Database:
         and ``statement_timeout_s`` set its flag, and the statement dies
         at its next cancellation point with a typed cause, counted once
         in ``statements_cancelled_<cause>``. Its trace (runtime/trace.py)
-        has the statement's id; nested calls on the same thread share
-        the outermost statement's context and trace."""
+        and its memory account (runtime/memaccount.py: staging, spill and
+        device charges) have the statement's id; nested calls on the same
+        thread share the outermost statement's context, trace and
+        account. The outermost call evaluates the brownout controller
+        first (``_overload_tick``)."""
         ctx, _outer = _INTERRUPTS.enter(
             text, timeout_s=float(self.settings.statement_timeout_s))
         tr, t_outer = _TRACES.enter(
             ctx.statement_id, text,
             enabled=bool(self.settings.trace_enabled),
             ring_size=int(self.settings.trace_ring_size))
+        acct, a_outer = _memaccount.ACCOUNTS.enter(
+            ctx.statement_id, text,
+            enabled=bool(self.settings.mem_accounting_enabled))
         t0 = time.monotonic()
         root = (tr.begin("statement", cat="statement")
                 if tr is not None and t_outer else None)
+        if t_outer:
+            self._overload_tick()
         try:
             return self._sql_inner(text)
         except StatementCancelled as e:
@@ -196,14 +204,70 @@ class Database:
                 ctx.counted = True
                 counters.inc(f"statements_cancelled_{e.cause}")
             raise
+        except OutOfDeviceMemory as e:
+            if a_outer:
+                self._dump_mem_forensics(e, ctx.statement_id, text)
+            raise
         finally:
             if root is not None:
                 tr.end(root)
             if t_outer:
                 histograms.observe("statement_ms",
                                    (time.monotonic() - t0) * 1e3)
+            _memaccount.ACCOUNTS.exit(acct)
             _TRACES.exit(tr)
             _INTERRUPTS.exit(ctx)
+
+    def _dump_mem_forensics(self, e: OutOfDeviceMemory, statement_id: int,
+                            text: str) -> None:
+        """Write ``mem-<statement id>.json`` into the log directory: the
+        per-owner accounting tree (with the allocator's counters at the
+        failure), the program's measurement and the admission estimate.
+        Never raises: forensics must not replace the typed error."""
+        try:
+            if not self.log.enabled:
+                return
+            payload = {"statement_id": statement_id,
+                       "sql": text.strip()[:500], "error": str(e),
+                       "est_bytes": e.est_bytes,
+                       "memory_analysis": e.mem_analysis,
+                       "accounting": e.snapshot,
+                       "ts_unix_s": round(time.time(), 3)}
+            os.makedirs(self.log.dir, exist_ok=True)
+            path = os.path.join(self.log.dir, f"mem-{statement_id}.json")
+            with open(path, "w") as f:
+                json.dump(payload, f, indent=1, default=str)
+            self.log.error("out_of_device_memory", f"{e} [mem dump={path}]")
+        except Exception:
+            pass
+
+    def _overload_tick(self) -> None:
+        """Evaluate the process-wide brownout controller (rate-limited
+        inside) and log a transition this Database has not seen yet. The
+        JAX session also evicts its block cache to the shrunken budget on
+        entry; the port has no block cache (ROADMAP Queue 1 item 1a).
+        Never raises: overload protection must not fail the statement it
+        protects."""
+        try:
+            state = _overload.CONTROLLER.evaluate(self.settings)
+            if state == self._overload_seen:
+                return
+            self._overload_seen = state
+            snap = _overload.CONTROLLER.snapshot()
+            with _trace.span("brownout-transition", cat="overload",
+                             entered=state):
+                if state:
+                    self.log.log(
+                        "WARNING", "overload",
+                        f"brownout entered: {snap.get('reason')} — batch "
+                        "serving disabled, admissions prefer the spill "
+                        "passes")
+                else:
+                    self.log.info(
+                        "overload", "brownout cleared: pressure below the "
+                        "exit threshold for brownout_exit_s")
+        except Exception:
+            pass
 
     def _sql_inner(self, text: str):
         t0 = time.perf_counter()
@@ -447,11 +511,15 @@ class Database:
 
     def _batch_eligible(self, consts) -> bool:
         """May this SELECT ride the batched-serving path? Parameterised
-        statements only, with batching on. The JAX session also keeps
-        external-table loads (``aux`` tables), statements inside an open
-        transaction, multihost and brownout serial; the port has none of
-        these yet (ROADMAP Queue 1 items 1a, 1b, 8 and the server)."""
+        statements only, with batching on and no brownout (stacked
+        members' parameters multiply footprints exactly when the card has
+        no headroom). The JAX session also keeps external-table loads
+        (``aux`` tables), statements inside an open transaction and
+        multihost serial; the port has none of these yet (ROADMAP Queue 1
+        items 1a, 1b and 8)."""
         if not bool(self.settings.batch_serving_enabled):
+            return False
+        if _overload.CONTROLLER.brownout_active():
             return False
         return (consts or {}).get("@params@") is not None
 
@@ -653,11 +721,13 @@ class Database:
 
     def close(self):
         """Stop the batch server (its parked members go on on the classic
-        path), then free the staged tables, the plan cache and this
-        Database's own spill directory."""
+        path), then free the staged tables, the plan cache, this
+        Database's own spill directory and its scratch directory."""
         if self._batch_server is not None:
             self._batch_server.stop()
         with self._cache_mu:
             self._select_cache.clear()
         self.executor.close()
+        self.log.close()
+        self._path_rm()
 

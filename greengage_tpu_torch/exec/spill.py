@@ -43,7 +43,7 @@ from greengage_tpu_torch.planner.logical import (Aggregate, ColInfo, Filter,
                                                  MotionKind, PartialState,
                                                  Plan, Project, Scan, Sort,
                                                  Window)
-from greengage_tpu_torch.runtime import interrupt
+from greengage_tpu_torch.runtime import interrupt, memaccount
 from greengage_tpu_torch.runtime import trace as _trace
 from greengage_tpu_torch.runtime.logger import counters
 from greengage_tpu_torch.storage import hashing
@@ -170,6 +170,15 @@ def count_scans(plan: Plan, table: str) -> int:
             n += 1
         stack.extend(p.children)
     return n
+
+
+def _charge_spill(cols: dict, valids: dict, item: str) -> None:
+    """Account the host-resident merged rows to the statement's 'spill'
+    owner (runtime/memaccount.py)."""
+    nb = sum(int(getattr(a, "nbytes", 0)) for a in cols.values())
+    nb += sum(int(getattr(a, "nbytes", 0)) for a in valids.values()
+              if a is not None)
+    memaccount.charge("spill", nb, item=item)
 
 
 def _collect_passes(cols_spec, results):
@@ -472,6 +481,7 @@ def _bucketed_dedupe_merge(executor, merged, dedupe, host_scan, aux_name,
     bucket_results = _motionpipe.run_pipeline(run_bkts, _bstage, _bcompute,
                                                label="dedupe")
     s_cols, s_valids = _collect_passes(state_cols, bucket_results)
+    _charge_spill(s_cols, s_valids, "merge-buckets")
     aux2 = "@spill:partials2"
     host_scan2 = Scan(aux2, list(state_cols))
     host_scan2.locus = outer_partial.locus
@@ -787,6 +797,7 @@ def spill_window_run(executor, plan: Motion, consts, raw: bool):
     bucket_results = _motionpipe.run_pipeline(run_bkts, _bstage, _bcompute,
                                                label="window")
     cols, valids = _collect_passes(out_cols, bucket_results)
+    _charge_spill(cols, valids, "window-output")
 
     # ---- phase 3: host ordering + limit ------------------------------
     if keyspec is not None:

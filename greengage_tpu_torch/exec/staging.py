@@ -6,7 +6,8 @@ prefetcher — the port's counterpart of greengage_tpu/exec/staging.py.
     numpy's copies release the GIL, so the units overlap. Where the JAX
     package keeps one process-wide pool, the port's pool lives for one
     staging call (a context manager that joins its threads), so no thread
-    outlives the statement that started it.
+    outlives the statement that started it. ``pool_queue_depth`` sums the
+    read units waiting in every live pool (the metrics op's gauge).
   - ``fill_buffer``: one ``[nseg * cap]`` staging buffer per column, each
     segment's rows written into it in place and only the unfilled tails
     padded. ``host_buffer`` gives the buffer as a pinned tensor when the
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import os
 import threading
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -85,6 +87,8 @@ class _StagePool:
     def __init__(self, n: int):
         self._ex = ThreadPoolExecutor(max_workers=n,
                                       thread_name_prefix="gg-stage")
+        with _pools_mu:
+            _pools.add(self)
 
     def submit(self, fn, *args):
         return self._ex.submit(fn, *args)
@@ -99,10 +103,30 @@ class _StagePool:
         self.close()
 
 
+# the staging calls' live pools, for pool_queue_depth
+_pools_mu = threading.Lock()
+_pools: weakref.WeakSet = weakref.WeakSet()
+
+
 def pool(settings):
     """The read pool for one staging call, as a context manager."""
     n = scan_thread_count(settings)
     return _InlinePool() if n <= 1 else _StagePool(n)
+
+
+def pool_queue_depth() -> int:
+    """Read units waiting for a staging-pool thread right now, over every
+    live staging call (a persistent backlog means ``scan_threads`` is
+    undersized for the workload)."""
+    with _pools_mu:
+        pools = list(_pools)
+    depth = 0
+    for p in pools:
+        try:
+            depth += p._ex._work_queue.qsize()
+        except (AttributeError, NotImplementedError):
+            pass
+    return depth
 
 
 def host_buffer(n: int, dtype, device) -> torch.Tensor:

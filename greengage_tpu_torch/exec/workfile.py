@@ -2,7 +2,8 @@
 counterpart of greengage_tpu/exec/workfile.py.
 
   - every captured pass lands in the HOST-RAM tier, counted in the
-    ``spill_tier_ram_bytes`` gauge;
+    ``spill_tier_ram_bytes`` gauge and the statement's 'spill' owner
+    (runtime/memaccount.py);
   - once a statement's retained passes exceed ``spill_host_limit_mb`` the
     COLDEST passes (earliest captured = last merged) demote to one
     compressed file each under the spill directory, their bytes moving to
@@ -40,6 +41,7 @@ import zlib
 
 import numpy as np
 
+from greengage_tpu_torch.runtime import memaccount
 from greengage_tpu_torch.runtime.logger import counters
 
 _FILE_RE = re.compile(r"^gg-spill-(\d+)-\d+-[0-9a-f]+\.wf$")
@@ -190,6 +192,7 @@ class SpillWorkfile:
             self.order = list(getattr(res, "_order", []) or [])
             self.base_stats = dict(res.stats or {})
         self._ram_bytes += nb
+        memaccount.charge("spill", nb, item=self.item)
         _tier_add(ram=nb)
         if self.limit_bytes is not None:
             self._demote_over(self.limit_bytes)
@@ -231,6 +234,7 @@ class SpillWorkfile:
         p.disk_bytes = nbytes
         p.data = None
         self._ram_bytes -= p.ram_bytes
+        memaccount.charge("spill", -p.ram_bytes, item=self.item)
         _tier_add(ram=-p.ram_bytes, disk=nbytes)
         p.ram_bytes = 0
         counters.inc("spill_demote_total")
@@ -293,12 +297,16 @@ class SpillWorkfile:
 
         motionpipe.run_pipeline(self._passes, stage, fill, label="workfile")
         self._passes = []
+        nb = sum(int(a.nbytes) for a in cols.values())
+        nb += sum(int(v.nbytes) for v in valids.values() if v is not None)
+        memaccount.charge("spill", nb, item=self.item)
         return cols, valids
 
     def _release(self, p: _Pass) -> None:
         if p.data is not None:
             p.data = None
             self._ram_bytes -= p.ram_bytes
+            memaccount.charge("spill", -p.ram_bytes, item=self.item)
             _tier_add(ram=-p.ram_bytes)
             p.ram_bytes = 0
         if p.path is not None:

@@ -17,9 +17,7 @@ wait via a registered listener, and the abandoning waiter re-notifies so
 a racing release is never lost (the same discipline as the timeout path).
 
 Overload armor (the JAX package's docs/ROBUSTNESS.md "Overload
-protection"; its ``admission_queue_limit`` and ``admission_shed_ramp``
-settings come to the port with the SQL server and the overload
-controller, ROADMAP Queue 1 item 9; until then shedding is off): with
+protection"): with
 ``admission_queue_limit`` set, a statement that would have to WAIT is
 load-shed by ``shed_check`` — a typed, retryable ``AdmissionShed``
 (SQLSTATE 53300 analog) at the depth cap, ramping in probabilistically
@@ -29,6 +27,7 @@ Usage (session-level):
     SET resource_queue_active = 2        -- concurrent statements
     SET resource_queue_memory_mb = 4096  -- per-query est ceiling (0 = off)
     SET resource_queue_timeout_s = 30
+    SET admission_queue_limit = 8        -- shed past this queue depth
 """
 
 from __future__ import annotations

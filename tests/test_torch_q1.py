@@ -200,7 +200,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                         ("runtime", "faultinject.py"),
                         ("runtime", "interrupt.py"), ("runtime", "trace.py"),
                         ("runtime", "runaway.py"), ("runtime", "resqueue.py"),
-                        ("runtime", "resgroup.py")]:
+                        ("runtime", "resgroup.py"), ("runtime", "server.py"),
+                        ("runtime", "overload.py"), ("runtime", "auth.py"),
+                        ("runtime", "memaccount.py")]:
         assert os.path.join("greengage_tpu_torch", sub, module) in rel
     assert "chip_smoke.py" in rel
     for path in sources:

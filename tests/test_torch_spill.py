@@ -39,18 +39,31 @@ import greengage_tpu_torch
 from greengage_tpu.analysis.plancorpus import TPCH_QUERIES
 from greengage_tpu.exec.compile import Compiler as JCompiler
 from greengage_tpu.exec.executor import QueryError as JQueryError
+from greengage_tpu.runtime import overload as joverload
 from greengage_tpu.runtime.faultinject import faults
 from greengage_tpu.sql.parser import parse as jparse
 from greengage_tpu.utils import tpch as jtpch
 from greengage_tpu_torch.exec import workfile
 from greengage_tpu_torch.exec.compile import Compiler
 from greengage_tpu_torch.exec.executor import OutOfDeviceMemory, QueryError
+from greengage_tpu_torch.runtime import overload as toverload
 from greengage_tpu_torch.runtime.logger import counters
 from greengage_tpu_torch.sql.parser import parse as tparse
 from greengage_tpu_torch.utils import tpch as ttpch
 
 PKGS = (("jax", greengage_tpu, {}),
         ("torch", greengage_tpu_torch, {"device": "cpu"}))
+
+
+@pytest.fixture(autouse=True)
+def _no_brownout_left():
+    """The OOM tests count device OOMs; three within brownout_window_s put
+    a package into its brownout (runtime/overload.py), which halves the
+    admission ceiling and turns batching off for whatever runs next in
+    the process. Each test leaves both packages' controllers reset."""
+    yield
+    joverload.CONTROLLER.reset()
+    toverload.CONTROLLER.reset()
 
 
 def _pair(nseg, ddl, tables):

@@ -377,6 +377,33 @@ def test_sql_q12_fused_launches(tdbs, monkeypatch):
         assert again.rows() == first.rows()
 
 
+def test_warm_q12_fused_gate_decides_as_in_jax(devices8):
+    """The gate reads the join output's capacity, which a warm Q12's cap
+    hint sizes to what the last run measured: with fused_dense_min_rows
+    above that capacity and below the cold run's, the first run takes the
+    kernel and the warm runs do not, in both packages alike (chip_smoke.py
+    --sf 1 meets this at the default 65,536 rows per segment)."""
+    q = TPCH_QUERIES["q12_shipmode"]
+    jd = greengage_tpu.connect(numsegments=8)
+    jd.settings.cost_feedback = False
+    jtpch.load(jd, 0.01, tables=["orders", "lineitem"])
+    jd.sql("analyze")
+    td = greengage_tpu_torch.connect(numsegments=8, device="cpu")
+    ttpch.load(td, sf=0.01, tables=["orders", "lineitem"])
+    td.sql("analyze")
+    try:
+        for min_rows, want in ((1024, [True, False, False]),
+                               (128, [True, True, True])):
+            jd.settings.fused_dense_min_rows = min_rows
+            td.settings.fused_dense_min_rows = min_rows
+            jgate = [jd.sql(q).stats["fused_kernel"] for _ in range(3)]
+            tgate = [td.sql(q).stats["fused_gate"] for _ in range(3)]
+            assert tgate == jgate == want
+    finally:
+        jd.close()
+        td.close()
+
+
 def test_recursive_cte_raises_naming_its_roadmap_item(tdbs):
     # windows, UNION and SELECT without FROM run (tests/test_torch_window.py);
     # the recursive CTE's fixpoint writes its worktables, so it waits for DML
