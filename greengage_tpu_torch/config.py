@@ -67,6 +67,11 @@ class Settings:
     # bounds the bound-plan LRU and the executor's per-statement cap hints
     plan_cache_params: bool = True
     plan_cache_size: int = 256
+    # plan validation (analysis/plancheck.py, checkPlan before dispatch):
+    # every planned tree and every spill bucket plan is walked for its
+    # Motion, locality and prune invariants; O(plan nodes) of host checks,
+    # so on by default, as in the JAX package
+    plan_validate: bool = True
     # statement lifecycle (runtime/interrupt.py): statement_timeout_s arms
     # a deadline at statement start; the statement dies at its next
     # cancellation point (boundary-granular — a launched program runs to

@@ -189,6 +189,13 @@ class CompileResult:
     node_rows: dict = field(default_factory=dict)
     # members of a batched program (its outputs' leading axis); 0 = classic
     batch_width: int = 0
+    # a batched program's feedback key, f"{cache key}@w{bucket}", and its
+    # measurement holder (exec/executor.py prepare_batch): each width
+    # bucket is measured and admitted by its own bytes
+    fb_key: str | None = None
+    batch_prog: object = None
+    # a batched program's stacked parameters on the device
+    batch_params: object = None
 
 
 class Compiler:
@@ -608,8 +615,7 @@ class Compiler:
     def _c_scan(self, plan: Scan):
         if plan.parts is not None:
             raise NotImplementedError(
-                "partitioned tables: ROADMAP Queue 1 item 1a (durable "
-                "storage)")
+                "partitioned tables: ROADMAP Queue 1 item 1a-ii")
         table = plan.table
         id_by_store = [(c.id, c.name) for c in plan.cols]
 

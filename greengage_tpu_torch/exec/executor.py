@@ -65,8 +65,10 @@ The batch half (``prepare_batch`` / ``dispatch_batch`` / ``demux_batch``,
 ``run_batch``) runs a window of same-shape statements as one batched
 program (exec/compile.py ``batch_width``) for exec/batchserve.py: the
 width bucketed to a power of two, members padded with the last one's
-parameters, admission of ``est_bytes`` (W members) against
-``effective_limit_bytes``, one flag read and one copy of every member's
+parameters, admission against ``effective_limit_bytes`` as the JAX
+executor admits a bucket (keyed ``f"{cache_key}@w{bucket}"``: its first
+launch measured, a warm bucket admitted by its measured bytes, a cold one
+by ``est_bytes`` of its W members), one flag read and one copy of every member's
 outputs to the host, and each member's Gather finished there. Anything
 that keeps the window from running as one program raises
 ``BatchFallback`` and every member runs the classic path.
@@ -856,13 +858,27 @@ class Executor:
         except (NotImplementedError, TypeError, ValueError) as e:
             raise BatchFallback(f"batched program not built: {e}") from None
         compiler.host_params = rows
-        # admission: est_bytes already counts the bucket's members
+        # admission, as the JAX executor does: each width bucket is keyed
+        # f"{cache_key}@w{bucket}" (est_bytes already counts the bucket's
+        # members), its first launch is measured (dispatch_batch) and a
+        # warm bucket is admitted by its measured bytes
+        if cache_key is not None:
+            comp.fb_key = f"{cache_key}@w{bucket}"
+            fbv = (self.feedback.version_for(shape_of(cache_key))
+                   if self.feedback is not None else 0)
+            comp.batch_prog = self._program(
+                (comp.fb_key, snapshot.get("version", 0),
+                 tuple(sorted(hints.items())), fbv), comp)
+        admit_bytes, _measured = self._admission_bytes(
+            comp, comp.batch_prog,
+            comp.fb_key if self.feedback is not None else None)
         limit = effective_limit_bytes(self.settings, self.layout)
-        if limit and comp.est_bytes > limit:
+        if limit and admit_bytes > limit:
             raise BatchFallback(
-                f"batched program would hold ~{comp.est_bytes >> 20} MB "
+                f"batched program would hold ~{admit_bytes >> 20} MB "
                 f"per segment at width {bucket}, above the "
                 f"{limit >> 20} MB ceiling")
+        comp.batch_params = bconsts["@params@rt"]
         # staging as for one statement; the port's in-memory store prunes
         # no blocks by value, so no member's parameters can starve
         # another's rows (the JAX package drops its parameter-valued
@@ -886,8 +902,18 @@ class Executor:
                 memaccount.device_work():
             faults.check("batch_dispatch")
             err = None
+            prog = comp.batch_prog
             try:
-                out = comp.program(tables)
+                if prog is not None and prog.mem_analysis is None \
+                        and bool(self.settings.mem_accounting_enabled):
+                    # a bucket's first launch, measured as a classic
+                    # program's is (_measure)
+                    out = self._measure(
+                        comp, prog, tables,
+                        {"@params@rt": comp.batch_params},
+                        comp.fb_key if self.feedback is not None else None)
+                else:
+                    out = comp.program(tables)
             except RuntimeError as e:
                 # a shape whose operators the batched program cannot run
                 # (vmap refuses the op), or the card's allocator: only
@@ -1048,7 +1074,10 @@ class Executor:
         measured, of a classic statement (``fb_key``) whose shape was
         measured before, is admitted by the feedback store's measurement
         of the shape (a promotion re-plans a shape into a new program),
-        as in the JAX executor; else the compiled estimate. A CPU device
+        as in the JAX executor, scaled up by the two programs' estimates
+        where this one is estimated larger (a retry tier, a multi-match
+        re-plan: the JAX executor reads each program's own analysis
+        before it runs); else the compiled estimate. A CPU device
         has no allocator to read, so the estimate governs there, as on the
         JAX CPU backend."""
         ma = prog.mem_analysis if prog is not None else None
@@ -1063,6 +1092,15 @@ class Executor:
         if ma is None and on_card and fb_key is not None:
             mtot = self.feedback.measured_bytes(fb_key, admitting=True)
             if mtot and int(mtot) // per_dev > 0:
+                # the shape's measurement is a sibling program's (the run
+                # before a promotion, a first run at other capacities): a
+                # program estimated larger than that one (a retry tier's
+                # x4 capacities, a multi-match re-plan) is charged the
+                # measurement scaled up by the two estimates, never less
+                est_then = self.feedback.measured_est_bytes(fb_key)
+                est_now = int(comp.est_bytes) * per_dev
+                if est_then and est_now > est_then:
+                    mtot = int(mtot) * est_now // est_then
                 counters.inc("admission_measured_total")
                 counters.inc("admission_measured_feedback_total")
                 return int(mtot) // per_dev, True
@@ -1291,9 +1329,15 @@ class Executor:
             faults.check("cancel_in_staging", segment=seg)
             if stmt_ctx is not None:
                 stmt_ctx.check()
+            # a whole segment decodes its block files straight into its
+            # slot of each buffer (a directory's store; the in-memory one
+            # ignores it)
+            dest = ({c: views[c][seg * cap: (seg + 1) * cap]
+                     for c in storage if c in views}
+                    if rng is None else None)
             with memaccount.ACCOUNTS.bind(stmt_acct):
-                cols, valids, n = self.store.read_segment(table, seg,
-                                                          storage, snapshot)
+                cols, valids, n = self.store.read_segment(
+                    table, seg, storage, snapshot, dest=dest)
             lo = 0
             if rng is not None:
                 lo, n = rng[0], max(min(n, rng[1]) - rng[0], 0)
@@ -1306,7 +1350,9 @@ class Executor:
                         else v[lo:lo + n]
                 else:
                     arr = cols[c][lo:lo + n]
-                view[seg * cap: seg * cap + n] = arr
+                slot = view[seg * cap: seg * cap + n]
+                if not np.may_share_memory(arr, slot):
+                    slot[:] = arr
                 view[seg * cap + n: (seg + 1) * cap] = 0
             return n
 

@@ -65,6 +65,7 @@ import torch
 from greengage_tpu_torch import resolve_device
 from greengage_tpu_torch import expr as E
 from greengage_tpu_torch import types as T
+from greengage_tpu_torch.analysis.plancheck import validate_plan
 from greengage_tpu_torch.catalog import (Catalog, Column, DistPolicy,
                                          PolicyKind, TableSchema)
 from greengage_tpu_torch.config import Settings
@@ -83,14 +84,15 @@ from greengage_tpu_torch.runtime.fts import FtsProber
 from greengage_tpu_torch.runtime.interrupt import REGISTRY as _INTERRUPTS
 from greengage_tpu_torch.runtime.interrupt import StatementCancelled
 from greengage_tpu_torch.runtime.logger import ClusterLog, counters, histograms
-from greengage_tpu_torch.runtime.resgroup import ResourceGroupManager
+from greengage_tpu_torch.runtime.resgroup import (ResourceGroup,
+                                                 ResourceGroupManager)
 from greengage_tpu_torch.runtime.resqueue import ResourceQueue
 from greengage_tpu_torch.runtime.trace import TRACES as _TRACES
 from greengage_tpu_torch.sql import ast as A
 from greengage_tpu_torch.sql.binder import (Binder, Scope, _ast_name,
                                            _contains_agg, type_from_name)
 from greengage_tpu_torch.sql.parser import SqlError, parse
-from greengage_tpu_torch.storage import TableStore
+from greengage_tpu_torch.storage import MemoryTableStore, TableStore
 
 # statements of the JAX session that wait for a later slice -> the ROADMAP
 # item that ports them
@@ -99,14 +101,14 @@ _LATER = {
     A.CopyStmt: "DML and COPY: ROADMAP Queue 1 item 1b",
     A.UpdateStmt: "DML and COPY: ROADMAP Queue 1 item 1b",
     A.DeleteStmt: "DML and COPY: ROADMAP Queue 1 item 1b",
-    A.TxStmt: "transactions: ROADMAP Queue 1 item 1a (durable storage)",
+    A.TxStmt: "transactions: ROADMAP Queue 1 item 1a-iii (runtime/dtm.py)",
     A.DeclareCursorStmt: "cursors: ROADMAP Queue 1 item 1h",
     A.RetrieveStmt: "cursors: ROADMAP Queue 1 item 1h",
     A.CloseCursorStmt: "cursors: ROADMAP Queue 1 item 1h",
     A.CreateExternalTableStmt: "external tables: ROADMAP Queue 1 item 1b",
-    A.AlterTableStmt: "ALTER TABLE: ROADMAP Queue 1 item 1a (durable storage)",
-    A.CreateIndexStmt: "indexes: ROADMAP Queue 1 item 1a (durable storage)",
-    A.DropIndexStmt: "indexes: ROADMAP Queue 1 item 1a (durable storage)",
+    A.AlterTableStmt: "ALTER TABLE: ROADMAP Queue 1 item 1a-ii",
+    A.CreateIndexStmt: "indexes: ROADMAP Queue 1 item 1a-ii",
+    A.DropIndexStmt: "indexes: ROADMAP Queue 1 item 1a-ii",
 }
 
 
@@ -114,43 +116,76 @@ _LATER = {
 class Database:
     def __init__(self, path: str | None = None, numsegments: int | None = None,
                  mirrors: bool = False, multihost=None, device=None):
-        if path is not None:
-            raise NotImplementedError(
-                "a database directory (durable storage, catalog.json): "
-                "ROADMAP Queue 1 item 1a; connect(path=None) is in memory")
+        """``path``: a database directory, created or reopened in the JAX
+        package's format (catalog.json, the manifest, block files,
+        calibration.json, feedback.json, the users file), as the JAX
+        session opens one: the catalog's width is checked against
+        ``numsegments`` and ``manifest.recover()`` resolves a write a
+        killed process left in doubt. None: in memory (the catalog and the
+        rows), with a scratch directory for the log and the users file
+        that goes at close."""
         if mirrors:
-            raise NotImplementedError("mirrors: ROADMAP Queue 1 item 1a")
+            raise NotImplementedError(
+                "mirrors: ROADMAP Queue 1 item 10 (replication)")
         if multihost is not None:
             raise NotImplementedError("multi-GPU: ROADMAP Queue 1 item 8")
         self.device = resolve_device(device)
-        # a scratch directory of the Database's own, as the JAX session
-        # makes for a database without a path: it holds the cluster log
-        # and the TCP users' file (runtime/auth.py), and goes at close
-        self.path = tempfile.mkdtemp(prefix="ggtpu_")
-        self._path_rm = weakref.finalize(self, shutil.rmtree, self.path,
-                                         ignore_errors=True)
+        if path is not None \
+                and os.path.exists(os.path.join(path, "catalog.json")):
+            self.catalog = Catalog.load(path)
+            width = self.catalog.segments.numsegments
+            if numsegments is None:
+                numsegments = width
+            elif width != numsegments:
+                raise ValueError(
+                    f"cluster width mismatch: on-disk {width}, requested "
+                    f"{numsegments} (run gpexpand-style redistribution)")
+            if self.catalog.segments.has_mirrors():
+                raise NotImplementedError(
+                    f"{path} has segment mirrors: ROADMAP Queue 1 item 10 "
+                    "(replication)")
+        else:
+            if numsegments is None:
+                # one segment per visible device, as the JAX session takes
+                # one per visible chip
+                numsegments = (torch.cuda.device_count()
+                               if self.device.type == "cuda" else 1)
+            self.catalog = Catalog(numsegments, path=path)
+        self.numsegments = numsegments
+        self.durable = path is not None
+        if self.durable:
+            os.makedirs(path, exist_ok=True)
+            self.path = path
+            self._path_rm = None
+            self.catalog._save()   # the width, before the first table
+            self.store = TableStore(path, self.catalog)
+            # in-doubt resolution on open: a load staged but not committed
+            # rolls back, committed lines fold into the root
+            self.store.manifest.recover()
+        else:
+            self.path = tempfile.mkdtemp(prefix="ggtpu_")
+            self._path_rm = weakref.finalize(self, shutil.rmtree, self.path,
+                                             ignore_errors=True)
+            self.store = MemoryTableStore(self.catalog)
         self.log = ClusterLog(self.path)
         # the brownout state this Database last saw (_overload_tick)
         self._overload_seen = False
-        if numsegments is None:
-            # one segment per visible device, as the JAX session takes one
-            # per visible chip
-            numsegments = (torch.cuda.device_count()
-                           if self.device.type == "cuda" else 1)
-        self.numsegments = numsegments
-        self.catalog = Catalog(numsegments)
-        self.store = TableStore(self.catalog)
         self.settings = Settings()
+        self.store.settings = self.settings
+        self.store.log = self.log
         # the cost model's process-wide knobs, installed as the JAX session
-        # installs them at connect (no calibration file in memory)
-        _cost.set_calibration(None)
+        # installs them at connect: the directory's calibration.json (the
+        # card's primitives, mgmt/cli.py) or the defaults, always
+        # reinstalled, so a directory opened after a calibrated one in the
+        # same process gets the defaults back
+        _cost.set_calibration(self._read_calibration())
         _cost.set_motion_overlap(self._motion_overlap_factor())
         self.layout = make_layout(numsegments, self.device)
         self.executor = Executor(self.catalog, self.store, self.layout,
                                  self.settings)
         # the cost-feedback store (planner/feedback.py): observed actuals
-        # against the planner's estimates per plan-node digest, kept in the
-        # scratch directory (across a reopen: ROADMAP Queue 1 item 1a)
+        # against the planner's estimates per plan-node digest, in the
+        # directory's feedback.json (kept across a reopen)
         self.feedback = FeedbackStore(os.path.join(self.path,
                                                    "feedback.json"),
                                       settings=self.settings)
@@ -159,7 +194,7 @@ class Database:
         self.executor.feedback = self.feedback
         # FTS (runtime/fts.py): one probe round trip per primary on this
         # Database's device; no background prober (the JAX session starts
-        # one for a registered standby, ROADMAP Queue 1 item 1a)
+        # one for a registered standby, ROADMAP Queue 1 item 10)
         self.fts = FtsProber(self.catalog.segments, self.device)
         counters.set("mh_topology_version", self.catalog.segments.version)
         # the bound-plan LRU (_cached_plan): (statement signature, store
@@ -179,11 +214,11 @@ class Database:
         # property)
         self._pc_info_local = threading.local()
         # admission (_admission): the resource queue and the resource
-        # groups. Groups live in memory with the catalog: persistence
-        # across a reopen waits for durable storage (ROADMAP Queue 1 item
-        # 1a)
+        # groups, whose definitions the catalog keeps (catalog.json)
         self.resqueue = ResourceQueue(self.settings)
-        self.resgroups = ResourceGroupManager(self.settings)
+        self.resgroups = ResourceGroupManager(
+            self.settings, {d["name"]: ResourceGroup.from_dict(d)
+                            for d in self.catalog.resource_groups})
         # the batch server (exec/batchserve.py): made on the first
         # batch-eligible statement, so its two threads exist only while
         # batch_serving_enabled is on
@@ -194,9 +229,8 @@ class Database:
     def _load_extensions(self) -> None:
         """Load the extensions the catalog records. Best-effort: a recorded
         extension whose module is gone must not keep the Database from
-        opening; its functions stay unknown. A catalog made in memory
-        starts with none: this matters once catalogs are reopened
-        (ROADMAP Queue 1 item 1a)."""
+        opening; its functions stay unknown. A reopened directory's
+        catalog.json lists them; a new catalog starts with none."""
         from greengage_tpu_torch import extensions as X
 
         for name in self.catalog.extensions:
@@ -205,12 +239,36 @@ class Database:
             except ValueError as e:
                 warnings.warn(f"extension {name!r} failed to load: {e}")
 
+    def _read_calibration(self) -> dict | None:
+        if not self.durable:
+            return None
+        try:
+            with open(os.path.join(self.path, "calibration.json")) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
     def set_calibration(self, values: dict | None) -> None:
         """Install measured cost-model primitives (planner/cost.py
-        ``set_calibration``, process-wide, as the JAX session installs its
-        cluster's calibration.json at connect; None restores the defaults)
-        and drop this Database's bound plans, priced under the others."""
+        ``set_calibration``, process-wide; None restores the defaults) and
+        drop this Database's bound plans, priced under the others. A
+        directory keeps them in calibration.json, which the JAX session
+        (and the next open) installs at connect."""
         _cost.set_calibration(values)
+        if self.durable:
+            cal = os.path.join(self.path, "calibration.json")
+            if values is None:
+                try:
+                    os.remove(cal)
+                except OSError:
+                    pass
+            else:
+                tmp = cal + f".{os.getpid()}.tmp"
+                with open(tmp, "w") as f:
+                    json.dump(values, f, indent=1)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, cal)
         with self._cache_mu:
             self._select_cache.clear()
 
@@ -301,7 +359,7 @@ class Database:
         """Evaluate the process-wide brownout controller (rate-limited
         inside) and log a transition this Database has not seen yet. The
         JAX session also evicts its block cache to the shrunken budget on
-        entry; the port has no block cache (ROADMAP Queue 1 item 1a).
+        entry; the port has no block cache (ROADMAP Queue 1 item 1a-ii).
         Never raises: overload protection must not fail the statement it
         protects."""
         try:
@@ -409,7 +467,7 @@ class Database:
     def _create_table(self, stmt: A.CreateTableStmt) -> str:
         if stmt.partition_kind is not None:
             raise SqlError("partitioned tables are not ported yet (ROADMAP "
-                           "Queue 1 item 1a, durable storage)")
+                           "Queue 1 item 1a-ii)")
         cols = [Column(c.name, type_from_name(c.type_name, c.typmod),
                        not c.not_null) for c in stmt.columns]
         kind = {"hash": PolicyKind.HASH, "random": PolicyKind.RANDOM,
@@ -435,6 +493,7 @@ class Database:
             raise ValueError(f'extension "{stmt.name}" already exists')
         X.load(stmt.name)
         self.catalog.extensions.append(stmt.name)
+        self.catalog._save()
         return "CREATE EXTENSION"
 
     def _analyze(self, table: str | None) -> str:
@@ -447,6 +506,7 @@ class Database:
         for n in names:
             schema = self.catalog.get(n)
             schema.stats = analyze_table(self.store, schema, snap)
+        self.catalog._save()   # a directory keeps the statistics
         return "ANALYZE"
 
     def load_table(self, table: str, columns: dict, valids: dict | None = None):
@@ -472,6 +532,11 @@ class Database:
                              feedback=(self.feedback
                                        if bool(self.settings.cost_feedback)
                                        else None))
+        if self.settings.plan_validate:
+            # checkPlan before dispatch (analysis/plancheck.py): a plan that
+            # breaks a Motion, locality or prune invariant dies here with
+            # its node path, never as a wrong answer after dispatch
+            validate_plan(planned, self.catalog)
         if info is not None:
             info["memo_used"] = binder.memo_used
         return planned, binder.consts, outs
@@ -501,7 +566,6 @@ class Database:
             planned, consts, _outs, exec_key = self._cached_plan(stmt)
         info = dict(self._plan_cache_info)
         plan_ms = (time.perf_counter() - t0) * 1e3
-        replanned = False
         # admission (the ResLockPortal analog): the resource group's slot
         # and the resource queue's, held while the statement runs — a
         # batched member holds its slot while it waits for batch-mates
@@ -517,25 +581,34 @@ class Database:
                                      multi_join_replan=False)
                     self._feedback_reconcile(planned, exec_key, res)
                     return res
-            try:
-                res = self.executor.run(planned, consts, cache_key=exec_key)
-            except QueryError as e:
-                if "duplicate keys" not in str(e) \
-                        or exec_key.endswith("#multi"):
-                    raise
-                # the uniqueness heuristic was wrong at run time: re-plan
-                # with the multi-match join everywhere, as the JAX session
-                # does, cached under the plain key so repeats skip the
-                # failing plan
-                planned, consts, _outs, exec_key = self._cached_plan(
-                    stmt, force_multi_join=True)
+            res, planned, exec_key, replanned = self._run_or_replan(
+                stmt, planned, consts, exec_key)
+            if replanned:
                 info = dict(self._plan_cache_info)
-                res = self.executor.run(planned, consts, cache_key=exec_key)
-                replanned = True
         res.stats.update(plan_ms=plan_ms, multi_join_replan=replanned,
                          plan_cache=info)
         self._feedback_reconcile(planned, exec_key, res)
         return res
+
+    def _run_or_replan(self, stmt, planned, consts, exec_key,
+                       instrument: bool = False):
+        """Run a planned SELECT. Where a unique-key join meets duplicate
+        build keys at run time (the uniqueness heuristic was wrong), re-plan
+        with the multi-match join everywhere, as the JAX session does,
+        cached under the plain key so repeats skip the failing plan, and
+        run that. -> (result, planned, exec key, re-planned?)."""
+        try:
+            return (self.executor.run(planned, consts, cache_key=exec_key,
+                                      instrument=instrument),
+                    planned, exec_key, False)
+        except QueryError as e:
+            if "duplicate keys" not in str(e) or exec_key.endswith("#multi"):
+                raise
+        planned, consts, _outs, exec_key = self._cached_plan(
+            stmt, force_multi_join=True)
+        return (self.executor.run(planned, consts, cache_key=exec_key,
+                                  instrument=instrument),
+                planned, exec_key, True)
 
     # ---- the cost-feedback loop (planner/feedback.py) ------------------
     def _feedback_reconcile(self, planned, exec_key: str, res) -> None:
@@ -584,8 +657,10 @@ class Database:
         else:
             planned, consts, _outs, ek = self._cached_plan(stmt.query)
             pc_info = dict(self._plan_cache_info)
-            res = self.executor.run(planned, consts, cache_key=ek,
-                                    instrument=True)
+            # the SELECT's multi-match re-plan too, so EXPLAIN ANALYZE
+            # answers wherever the statement does
+            res, planned, ek, _r = self._run_or_replan(
+                stmt.query, planned, consts, ek, instrument=True)
             self._feedback_reconcile(planned, ek, res)
             s = res.stats or {}
             text = describe(planned,
@@ -719,10 +794,9 @@ class Database:
         return self.resgroups.status()
 
     def _resource_group(self, stmt) -> str:
-        """CREATE / ALTER / DROP RESOURCE GROUP. The JAX session persists
-        the definitions in its catalog; the port's catalog is in memory,
-        so they last as long as this Database (persistence across a
-        reopen waits for ROADMAP Queue 1 item 1a)."""
+        """CREATE / ALTER / DROP RESOURCE GROUP; the definitions (built-ins
+        included, so tuned caps survive) persist in the catalog, as in the
+        JAX session."""
         allowed = {"concurrency", "memory_limit_mb", "cpu_weight"}
         bad = set(stmt.options) - allowed
         if bad:
@@ -730,12 +804,17 @@ class Database:
                            f"{', '.join(sorted(bad))}")
         if stmt.action == "create":
             self.resgroups.create(stmt.name, **stmt.options)
-            return "CREATE RESOURCE GROUP"
-        if stmt.action == "drop":
+            tag = "CREATE RESOURCE GROUP"
+        elif stmt.action == "drop":
             self.resgroups.drop(stmt.name)
-            return "DROP RESOURCE GROUP"
-        self.resgroups.alter(stmt.name, **stmt.options)
-        return "ALTER RESOURCE GROUP"
+            tag = "DROP RESOURCE GROUP"
+        else:
+            self.resgroups.alter(stmt.name, **stmt.options)
+            tag = "ALTER RESOURCE GROUP"
+        self.catalog.resource_groups = [
+            g.to_dict() for g in self.resgroups.groups.values()]
+        self.catalog._save()
+        return tag
 
     # ---- batched serving (exec/batchserve.py) --------------------------
     def _batcher(self):
@@ -808,7 +887,7 @@ class Database:
         statement's cap hints in the executor."""
         from greengage_tpu_torch.sql.paramize import paramize
 
-        version = self.store.manifest.version
+        version = self.store.manifest.version()
         norm, pv, sig = (paramize(stmt, self.catalog)
                          if self.settings.plan_cache_params
                          else (stmt, None, None))
@@ -988,8 +1067,13 @@ class Database:
     def close(self):
         """Stop the FTS prober and the batch server (its parked members go
         on on the classic path), then free the staged tables, the plan
-        cache, this Database's own spill directory and its scratch
-        directory."""
+        cache and this Database's own spill directory. A directory keeps
+        its feedback store (feedback.json); an in-memory Database's
+        scratch directory goes."""
+        try:
+            self.feedback.save()
+        except Exception:
+            pass
         self.fts.stop()
         if self._batch_server is not None:
             self._batch_server.stop()
@@ -997,5 +1081,6 @@ class Database:
             self._select_cache.clear()
         self.executor.close()
         self.log.close()
-        self._path_rm()
+        if self._path_rm is not None:
+            self._path_rm()
 

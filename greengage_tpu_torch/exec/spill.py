@@ -38,6 +38,7 @@ import numpy as np
 
 from greengage_tpu_torch import expr as E
 from greengage_tpu_torch import types as T
+from greengage_tpu_torch.analysis.plancheck import validate_plan
 from greengage_tpu_torch.planner.locus import Locus
 from greengage_tpu_torch.planner.logical import (Aggregate, ColInfo, Filter,
                                                  Join, Limit, Motion,
@@ -47,7 +48,7 @@ from greengage_tpu_torch.planner.logical import (Aggregate, ColInfo, Filter,
 from greengage_tpu_torch.runtime import interrupt, memaccount
 from greengage_tpu_torch.runtime import trace as _trace
 from greengage_tpu_torch.runtime.logger import counters
-from greengage_tpu_torch.storage import hashing
+from greengage_tpu_torch.storage import native
 
 MAX_PASSES = 256
 CHUNK_FLOOR = 1 << 12
@@ -446,11 +447,11 @@ def _bucket_hash(aux_cols, aux_valids, key_ids) -> np.ndarray:
             a = a.astype(np.float64)
             a = np.where(np.isnan(a), np.float64("nan"), a + 0.0)
             a = a.view(np.int64)
-        hk = hashing.hash_i64(a.astype(np.int64))
+        hk = native.hash_i64(a.astype(np.int64))
         v = aux_valids.get(kid)
         if v is not None:
             hk = np.where(np.asarray(v, bool), hk, np.uint32(0x27D4EB2F))
-        h = hashing.hash_combine(h, hk)
+        h = native.hash_combine(h, hk)
     return h
 
 
@@ -810,6 +811,11 @@ def spill_window_run(executor, plan: Motion, consts, raw: bool,
 
     bucket_plan = Motion(MotionKind.GATHER, rebuild(plan.child))
     bucket_plan.locus = Locus.entry()
+    if bool(executor.settings.plan_validate):
+        # the bucket plan is a real plan: check its spill shape (a window
+        # hashed on its partition keys, the Motion boundary) as any
+        # statement's before paying K launches, as the JAX spill does
+        validate_plan(bucket_plan, executor.catalog)
 
     h = _bucket_hash(aux_cols, aux_valids, key_ids)
     K = 1

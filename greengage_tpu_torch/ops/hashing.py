@@ -13,10 +13,12 @@ int64 arithmetically).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from greengage_tpu_torch import to_device
 from greengage_tpu_torch import types as T
+from greengage_tpu_torch.storage.native import hash_bytes
 
 HASH_INIT = 0x9E3779B9
 COMBINE_MUL = 0x01000193
@@ -88,20 +90,17 @@ def segment_of(rowhash, numsegments: int):
 
 def hash_text(s: str, seed: int = 0) -> int:
     """uint32 hash of a string's UTF-8 bytes (8-byte little-endian chunk
-    folding + length) — the storage layer's ``hash_bytes``, which TEXT
-    dictionary hash LUTs are built from."""
-    data = s.encode("utf-8")
-    acc = torch.tensor([(seed & M32) ^ HASH_INIT], dtype=torch.int64)
-    for i in range(0, len(data), 8):
-        chunk = int.from_bytes(data[i:i + 8].ljust(8, b"\0"), "little")
-        if chunk >= 1 << 63:
-            chunk -= 1 << 64
-        acc = hash_combine(acc, hash_i64(torch.tensor([chunk])))
-    acc = hash_combine(acc, hash_i64(torch.tensor([len(data)])))
-    return int(acc[0])
+    folding + length): the storage layer's ``hash_bytes``
+    (storage/native.py), its one definition, which TEXT dictionary hash
+    LUTs and row placement are built from."""
+    return hash_bytes(s.encode("utf-8"), seed)
 
 
 def text_hash_lut(values: list[str], device=None) -> torch.Tensor:
-    """Per-dictionary-entry hashes plus the sentinel row (hash 0)."""
-    return to_device([hash_text(v) for v in values] + [0],
+    """Per-dictionary-entry hashes plus the sentinel row (hash 0): the
+    values of the storage dictionary's ``hashes()``, which the JAX compiler
+    reads."""
+    lut = np.fromiter((hash_bytes(v.encode("utf-8")) for v in values),
+                      dtype=np.int64, count=len(values))
+    return to_device(np.concatenate([lut, np.zeros(1, np.int64)]),
                      device or "cpu", torch.int64)

@@ -321,6 +321,14 @@ class FeedbackStore:
                 return None
             return int(mb) if mb else None
 
+    def measured_est_bytes(self, exec_key: str) -> int | None:
+        """The estimate (all segments of the device) of the program whose
+        measurement ``measured_bytes`` holds for the shape."""
+        with self._mu:
+            sh = self.shapes.get(shape_key(exec_key))
+            est = sh.get("est_dev_bytes") if sh else None
+            return int(est) if est else None
+
     def note_caps(self, exec_key: str, caps: dict) -> None:
         if not caps:
             return

@@ -17,9 +17,9 @@ the scarce resources are device time and device memory, so a group carries
                    time runs first (consumed_s / cpu_weight), standing in
                    for cgroup cpu.shares
 
-Groups are session-wide objects. The JAX package persists them in its
-catalog; the port's catalog lives in memory, so its groups do too until
-durable storage (ROADMAP Queue 1 item 1a). The ACTIVE group is per thread
+Groups are session-wide objects, persisted in the catalog as the JAX
+package does (catalog.json of a database directory, so they survive a
+reopen; in memory without one). The ACTIVE group is per thread
 (one server connection = one thread), set with
 ``SET resource_group = <name>``. A statement's ``consumed_s`` ("chip
 seconds" in ``status()``) is host-clock time around its execution, which

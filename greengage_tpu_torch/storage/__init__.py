@@ -1,3 +1,5 @@
-"""Storage — the port's in-memory table store and TEXT dictionaries."""
+"""Storage — the port's table stores (a database directory's block files
+and manifest, or in memory), TEXT dictionaries and the host codec."""
 
-from greengage_tpu_torch.storage.table_store import TableStore  # noqa: F401
+from greengage_tpu_torch.storage.table_store import (  # noqa: F401
+    MemoryTableStore, TableStore)

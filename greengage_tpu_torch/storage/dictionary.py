@@ -17,7 +17,7 @@ import hashlib
 
 import numpy as np
 
-from greengage_tpu_torch.storage import hashing
+from greengage_tpu_torch.storage import native
 
 
 class Dictionary:
@@ -79,7 +79,7 @@ class Dictionary:
         this dictionary) negative-indexes onto the sentinel instead of
         silently hashing as the last real entry."""
         return np.array(
-            [hashing.hash_bytes(v.encode("utf-8"), seed) for v in self.values]
+            [native.hash_bytes(v.encode("utf-8"), seed) for v in self.values]
             + [0],
             dtype=np.uint32,
         )

@@ -7,10 +7,10 @@ against the JAX package on the same data:
     equals the JAX package's, and a 3x-wrong estimate re-plans on its
     second execution in both packages, with the same ``rows=`` before and
     after and ``feedback.gen == 1`` after five runs;
-  * tests/test_feedback.py's tests, in memory with ``load_table`` where
-    they INSERT. Its restart, standby-promotion and
-    measured-admission-after-restart tests wait for durable storage
-    (ROADMAP Queue 1 item 1a): the port has no ``connect(path=...)``;
+  * tests/test_feedback.py's tests, with ``load_table`` where they
+    INSERT; its restart and measured-admission-after-restart tests reopen
+    a database directory, as the JAX ones do (the standby-promotion test
+    waits for ROADMAP Queue 1 item 10);
   * tests/test_cost_calibration.py's round trip and broadcast flip, the
     port's plan flipping as the JAX package's does;
   * mgmt/cli's device measurements on the CPU, the checkperf frame equal
@@ -19,6 +19,7 @@ against the JAX package on the same data:
 Every test restores ``set_calibration(None)`` and the fault registries,
 and reads counters as deltas."""
 
+import os
 import re
 import threading
 
@@ -263,8 +264,14 @@ def test_batched_members_feed_no_correction():
         for r in res:
             d._feedback_reconcile(planned, ek, r)
         assert d.feedback.gen == 0
-        # the shape is registered by its planning, never run
-        assert [s["runs"] for s in d.feedback.report()["shapes"]] == [0]
+        # the shape is registered by its planning, never run; the width
+        # bucket's first launch is measured under the bucket's own key
+        # (f"{exec key}@w2"), as the JAX executor's dispatch_batch notes it,
+        # and runs nothing either
+        shapes = d.feedback.report()["shapes"]
+        assert [s["runs"] for s in shapes] == [0, 0]
+        assert d.feedback.measured_bytes(f"{ek}@w2") > 0
+        assert d.feedback.measured_bytes(ek) is None
     finally:
         d.close()
 
@@ -500,3 +507,64 @@ def test_3x_wrong_estimate_replans_on_the_card():
     assert "rows=500" in lines["cuda"][1] and lines["cuda"][2] == 1
     cal = cli._measure_device_primitives()
     assert all(v > 0 for v in cal.values())
+
+
+# ---------------------------------------------------------------------------
+# tests/test_feedback.py's restart tests, on a database directory
+# ---------------------------------------------------------------------------
+
+def _dir_db(path, rows):
+    d = greengage_tpu_torch.connect(path, numsegments=4, device="cpu")
+    d.sql("create table t (a int, b int) distributed by (a)")
+    d.load_table("t", rows)
+    return d
+
+
+def test_calibration_survives_process_restart(tmp_path):
+    path = str(tmp_path / "c")
+    d = _dir_db(path, FILTER_ROWS)
+    d.sql(FQ)
+    assert d.feedback.gen == 1
+    d.close()
+    d2 = greengage_tpu_torch.connect(path, numsegments=4, device="cpu")
+    try:
+        assert d2.feedback.gen == 1
+        assert "rows=500" in _line(_explain(d2, FQ), "Filter")
+        assert d2.sql(FQ).rows()[0][0] == 500
+        assert os.path.exists(os.path.join(path, "feedback.json"))
+    finally:
+        d2.close()
+
+
+def test_measured_admission_prices_cold_program_after_restart(
+        tmp_path, monkeypatch):
+    """The store keeps each shape's measured bytes in feedback.json: a
+    reopened directory admits a cold program by them. The port measures a
+    launch through the card's allocator, stood in for on the CPU (as
+    tests/test_torch_memaccount.py's ``card_standin`` does)."""
+    from greengage_tpu_torch.runtime import memaccount
+
+    monkeypatch.setattr(memaccount, "device_memory_stats",
+                        lambda: {"bytes_in_use": 1 << 30,
+                                 "peak_bytes_in_use": 2 << 30,
+                                 "bytes_limit": 80 << 30})
+    monkeypatch.setattr(memaccount, "peak_begin", lambda device: 1 << 30)
+    monkeypatch.setattr(memaccount, "peak_read",
+                        lambda device: (1 << 30) + (8 << 20))
+    path = str(tmp_path / "c")
+    d = _dir_db(path, {"a": np.arange(500), "b": np.arange(500)})
+    d.sql(AQ)
+    d.sql(AQ)
+    d.close()
+    d2 = greengage_tpu_torch.connect(path, numsegments=4, device="cpu")
+    try:
+        base = counters.snapshot()
+        r = d2.sql(AQ)
+        assert len(r.rows()) == 500
+        assert r.stats["mem"]["admitted_by"] == "measured"
+        assert r.stats["mem"]["admitted_bytes"] != \
+            r.stats["mem"]["est_bytes"]
+        delta = counters.since(base, prefix="admission_")
+        assert delta.get("admission_measured_feedback_total", 0) >= 1
+    finally:
+        d2.close()

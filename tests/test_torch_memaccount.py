@@ -524,3 +524,95 @@ def test_no_global_limit_means_no_enforcement(rdb):
         assert len(r.rows()) == 23
     finally:
         rdb.sql("set vmem_protect_limit_mb = 12288")
+
+
+def test_warm_batch_bucket_admitted_by_its_measured_bytes(monkeypatch):
+    """ROADMAP Queue 3 item 10: a batched program is keyed by its width
+    bucket (``f"{cache_key}@w{bucket}"``), measured at its first launch and
+    admitted by the measured bytes once warm, as the JAX executor does
+    (greengage_tpu/exec/executor.py prepare_batch). At a ceiling between
+    the measured and the estimated bytes a warm bucket batches; a cold one
+    falls back on its estimate."""
+    from greengage_tpu_torch.exec.batchserve import BatchFallback
+    from greengage_tpu_torch.sql.paramize import ParamVector
+    from greengage_tpu_torch.sql.parser import parse
+
+    growth = 1 << 20
+    monkeypatch.setattr(memaccount, "device_memory_stats",
+                        lambda: {"bytes_in_use": 1 << 30,
+                                 "peak_bytes_in_use": 2 << 30,
+                                 "bytes_limit": 80 << 30})
+    monkeypatch.setattr(memaccount, "peak_begin", lambda device: 1 << 30)
+    monkeypatch.setattr(memaccount, "peak_read",
+                        lambda device: (1 << 30) + growth)
+    n = 400_000
+    d = greengage_tpu_torch.connect(numsegments=4, device="cpu")
+    try:
+        d.sql("create table wb (k int, g int, v int) distributed by (k)")
+        d.load_table("wb", {"k": np.arange(n), "g": np.arange(n) % 7,
+                            "v": np.arange(n) % 11})
+        d.sql("analyze")
+        q = "select count(*), sum(v) from wb where g < 3"
+        planned, consts, _o, ek = d._cached_plan(parse(q)[0])
+        pv = consts["@params@"]
+        rows = [ParamVector((v,), pv.types) for v in (1, 2, 3, 4)]
+        want = [[(int(np.sum(np.arange(n) % 7 < v)),
+                  int(np.sum((np.arange(n) % 11)[np.arange(n) % 7 < v])))]
+                for v in (1, 2, 3, 4)]
+        m0 = counters.get("mem_analysis_runs")
+        cold = d.executor.run_batch(planned, consts, ek, rows)
+        assert [r.rows() for r in cold] == want
+        assert counters.get("mem_analysis_runs") == m0 + 1
+        prog = d.executor._programs[next(
+            k for k in d.executor._programs if k[0] == f"{ek}@w4")]
+        measured = sum(prog.mem_analysis.values()) // 4
+        est = int(prog.est_bytes)
+        assert measured < est
+        # a ceiling between the two: the warm bucket batches, admitted by
+        # its measured bytes, and is not measured again
+        limit_mb = -(-measured // (1 << 20))
+        assert measured <= limit_mb << 20 < est
+        d.sql(f"set vmem_protect_limit_mb = {limit_mb}")
+        a0 = counters.get("admission_measured_total")
+        warm = d.executor.run_batch(planned, consts, ek, rows)
+        assert [r.rows() for r in warm] == want
+        assert counters.get("admission_measured_total") == a0 + 1
+        assert counters.get("mem_analysis_runs") == m0 + 1
+        # another bucket is not measured yet: its estimate keeps it serial
+        with pytest.raises(BatchFallback, match="ceiling"):
+            d.executor.run_batch(planned, consts, ek, rows + rows[:1])
+    finally:
+        d.close()
+
+
+def test_a_larger_sibling_program_is_charged_the_scaled_measurement(
+        monkeypatch):
+    """A program not yet measured is admitted on a card by the store's
+    measurement of its shape; when it is estimated larger than the program
+    that measurement came from (a retry tier's x4 capacities, a
+    multi-match re-plan), the measurement is scaled up by the two
+    estimates, so it spills instead of running out of the card's memory
+    (TPC-H Q18 at SF10 and Q21 at SF 1 did, chip_smoke.py's tpch22 phase).
+    A program estimated no larger keeps the measurement as it is."""
+    import types
+
+    monkeypatch.setattr(memaccount, "device_memory_stats",
+                        lambda: {"bytes_in_use": 1 << 30,
+                                 "peak_bytes_in_use": 2 << 30,
+                                 "bytes_limit": 80 << 30})
+    d = greengage_tpu_torch.connect(numsegments=4, device="cpu")
+    try:
+        ex = d.executor
+        key = "shape-of-a-statement"
+        # the first program: estimated 100 MB a segment (400 MB on the
+        # device), measured 200 MB in all
+        d.feedback.note_measured(key, 200 << 20, 400 << 20, admits=True)
+        per_seg = (200 << 20) // 4
+        same = types.SimpleNamespace(est_bytes=100 << 20)
+        smaller = types.SimpleNamespace(est_bytes=60 << 20)
+        tier1 = types.SimpleNamespace(est_bytes=400 << 20)
+        assert ex._admission_bytes(same, None, key) == (per_seg, True)
+        assert ex._admission_bytes(smaller, None, key) == (per_seg, True)
+        assert ex._admission_bytes(tier1, None, key) == (4 * per_seg, True)
+    finally:
+        d.close()

@@ -206,7 +206,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                         ("runtime", "retry.py"), ("runtime", "lockdebug.py"),
                         ("runtime", "fts.py"), ("planner", "feedback.py"),
                         ("mgmt", "cli.py"), ("contrib", "geo.py"),
-                        ("utils", "plancorpus.py")]:
+                        ("utils", "plancorpus.py"),
+                        ("analysis", "plancheck.py"),
+                        ("storage", "corruption.py"),
+                        ("storage", "native.py"), ("storage", "blockfile.py"),
+                        ("storage", "manifest.py")]:
         assert os.path.join("greengage_tpu_torch", sub, module) in rel
     assert "chip_smoke.py" in rel
     for path in sources:

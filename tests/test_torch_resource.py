@@ -3,9 +3,8 @@ runtime/resgroup.py): tests/test_resqueue.py's and tests/test_resgroup.py's
 statements on a port Database (``device="cpu"``), with the JAX package's
 rows beside the port's where a statement answers.
 
-The port's catalog lives in memory, so its groups do too:
-``test_groups_persist_across_reopen`` waits for durable storage (ROADMAP
-Queue 1 item 1a) and is not here. The JAX tests fill their tables with
+``test_groups_persist_across_reopen`` opens a database directory, as the
+JAX test does; the other tests run in memory. The JAX tests fill their tables with
 INSERT, which waits for ROADMAP Queue 1 item 1b: here ``load_table`` loads
 the same rows.
 """
@@ -113,6 +112,19 @@ def gdb():
     d.load_table("t", {"k": np.arange(50), "v": np.arange(50)})
     yield d
     d.close()
+
+
+def test_groups_persist_across_reopen(tmp_path):
+    d = greengage_tpu_torch.connect(str(tmp_path / "c"), numsegments=4,
+                                    device="cpu")
+    d.sql("create resource group rpt with (concurrency=1, cpu_weight=10)")
+    d2 = greengage_tpu_torch.connect(str(tmp_path / "c"), device="cpu")
+    try:
+        st = {g["name"]: g for g in d2.resgroup_status()}
+        assert st["rpt"]["concurrency"] == 1 and st["rpt"]["cpu_weight"] == 10
+    finally:
+        d2.close()
+        d.close()
 
 
 def test_ddl_and_status(gdb):
