@@ -116,8 +116,17 @@ Phases, one JSON line each; any failure exits non-zero:
            (staged from the block files: the kernel line's numbers are its
            job table's) and warm, one fused launch each, exact against
            numpy; Q3 and Q12 exact; write seconds, bytes on disk, reopen
-           seconds, staging and warm times beside the in-memory store's;
-           the directory removed at the end
+           seconds, staging and warm times beside the in-memory store's
+  dml      on the durable phase's directory: DELETE the rows shipped before
+           1993 (deletion bitmaps only, no data file rewritten), UPDATE
+           l_discount of ~1% of lineitem, INSERT INTO lineitem SELECT ~0.1%
+           of it, COPY lineitem FROM a CSV file of SF 0.1 lineitem rows
+           written from the generator; then SQL Q1, exact against numpy
+           after the same four changes, one fused launch (the kernel held
+           against its plain version at that job table); close, reopen
+           and Q1 again; VACUUM and Q1 again, no bitmap left. Each
+           statement's seconds and rows, cold and warm Q1 before and
+           after; the directory removed at the end
   dryrun   the distributed step's exact-sum check
 
 then the kernel table, the nvidia-smi line, and as the last line
@@ -3420,14 +3429,18 @@ def _dir_bytes(path: str) -> int:
                for d, _s, fs in os.walk(path) for f in fs)
 
 
+DURABLE_DIR = "_durable_smoke"
+
+
 def phase_durable(torch, data, nseg: int, reps: int, name: str) -> tuple:
     """The main path from disk: lineitem, orders and customer written into
     a fresh database directory (block files and the manifest), the
     Database closed and the directory reopened in a new one; SQL Q1 cold
     (staged from the block files) and warm, one fused launch each, exact
     against numpy; Q3 and Q12 exact; write, reopen and staging times beside
-    the in-memory store's. The directory goes at the end. -> (the kernel's
-    launches by the cold Q1, the _timed_form row of its job table)."""
+    the in-memory store's. The directory stays for the dml phase (main
+    removes it). -> (the kernel's launches by the cold Q1, the _timed_form
+    row of its job table)."""
     import os
     import shutil
 
@@ -3436,7 +3449,7 @@ def phase_durable(torch, data, nseg: int, reps: int, name: str) -> tuple:
     from greengage_tpu_torch.storage import native
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "_durable_smoke")
+                        DURABLE_DIR)
     shutil.rmtree(path, ignore_errors=True)
     out = {"phase": "durable", "nseg": nseg, "device": name,
            "codec_route": native.route(), "reduced": []}
@@ -3518,11 +3531,211 @@ def phase_durable(torch, data, nseg: int, reps: int, name: str) -> tuple:
                    fused_dense_agg_launches=launches,
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    ok=True)
+    except BaseException:
+        shutil.rmtree(path, ignore_errors=True)
+        raise
+    emit(out)
+    return launches, form
+
+
+def _csv_of(schema, cols: dict) -> str:
+    """Generated rows as CSV text in the table's column order: integers,
+    DECIMAL from its scaled integers, dates as ISO days, text as is (the
+    generator's text has no delimiter or quote)."""
+    fields = []
+    for c in schema.columns:
+        v = cols[c.name]
+        kind = c.type.kind.name
+        if kind == "TEXT":
+            vocab = np.asarray(v.vocab if hasattr(v, "vocab") else v,
+                               dtype=object)
+            a = (vocab[v.codes] if hasattr(v, "codes") else vocab).astype(
+                str)
+        elif kind == "DECIMAL":
+            scale = c.type.scale
+            q, r = np.divmod(np.asarray(v, np.int64), 10 ** scale)
+            a = np.array([f"{x}.{y:0{scale}d}" for x, y in
+                          zip(q.tolist(), r.tolist())])
+        elif kind == "DATE":
+            a = (np.datetime64("1970-01-01", "D")
+                 + np.asarray(v).astype("timedelta64[D]")).astype(str)
+        else:
+            a = np.asarray(v).astype(str)
+        fields.append(a.tolist())
+    return "".join(",".join(r) + "\n" for r in zip(*fields))
+
+
+def dml_reference(li: dict, extra: dict, cutoff: int) -> dict:
+    """Q1's numpy reference after the dml phase's four changes, applied to
+    the generator's arrays: DELETE shipdate < 1993-01-01, UPDATE discount
+    + 0.01 where orderkey % 100 = 0, INSERT the rows with orderkey % 1000
+    = 1 again, append the COPY's rows (``extra``, its text mapped onto
+    lineitem's vocabularies by string)."""
+    from greengage_tpu_torch.types import Coded
+
+    need = ("l_orderkey", "l_returnflag", "l_linestatus", "l_quantity",
+            "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
+    live = li["l_shipdate"] >= _days("1993-01-01")
+
+    def col(src, name, rows):
+        v = src[name]
+        return v.codes[rows] if hasattr(v, "codes") else np.asarray(v)[rows]
+
+    cur = {k: col(li, k, live) for k in need}
+    cur["l_discount"] = np.where(cur["l_orderkey"] % 100 == 0,
+                                 cur["l_discount"] + 1, cur["l_discount"])
+    dup = cur["l_orderkey"] % 1000 == 1
+    out = {}
+    for k in need:
+        add = col(extra, k, slice(None))
+        if k in ("l_returnflag", "l_linestatus"):
+            vocab = list(li[k].vocab)
+            add = np.array([vocab.index(x) for x in
+                            np.asarray(extra[k].vocab, dtype=object)],
+                           np.int64)[add]
+        out[k] = np.concatenate([cur[k], cur[k][dup], add])
+    for k in ("l_returnflag", "l_linestatus"):
+        out[k] = Coded(list(li[k].vocab), out[k].astype(np.int32))
+    return q1_reference(out, cutoff)
+
+
+def phase_dml(torch, data, nseg: int, reps: int, name: str,
+              smi_line: str) -> tuple:
+    """INSERT, COPY, DELETE, UPDATE and VACUUM on the durable phase's
+    directory (SF10 lineitem, 8 segments), then SQL Q1 against numpy after
+    the same changes, before and after a reopen and after VACUUM. -> (the
+    fused kernel's launches by the first Q1 after the changes, the
+    _timed_form row of its job table)."""
+    import os
+    import shutil
+    import tempfile
+
+    import greengage_tpu_torch
+    from greengage_tpu_torch.ops import fused_agg
+    from greengage_tpu_torch.utils import tpch
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        DURABLE_DIR)
+    out = {"phase": "dml", "nseg": nseg, "device": name, "card": smi_line,
+           "statements": {}}
+    li = data["lineitem"]
+    cutoff = _days("1998-09-02")
+
+    def timed(fn):
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    def q1_runs(db, tag, n):
+        times = []
+        for _ in range(n):
+            before = fused_agg.LAUNCHES
+            res, s = timed(lambda: db.sql(SQL_Q1))
+            if fused_agg.LAUNCHES != before + 1:
+                raise AssertionError(f"{tag}: Q1 launched the fused kernel "
+                                     f"{fused_agg.LAUNCHES - before} times")
+            times.append(s)
+        out[f"q1_{tag}_s"] = times
+        return res
+
+    tmp = tempfile.mkdtemp(prefix="gg-dml-")
+    try:
+        # the COPY's file: SF 0.1 lineitem rows from the repo's generator
+        t = time.perf_counter()
+        extra = tpch.generate(0.1)["lineitem"]
+        db = greengage_tpu_torch.connect(path=path, numsegments=nseg)
+        csv_path = os.path.join(tmp, "lineitem_sf0.1.csv")
+        with open(csv_path, "w") as f:
+            f.write(_csv_of(db.catalog.get("lineitem"), extra))
+        out["csv_write_s"] = time.perf_counter() - t
+        out["csv_bytes"] = os.path.getsize(csv_path)
+        ref0 = q1_reference(li, cutoff)
+        check_q1(q1_runs(db, "before", 2), ref0)
+        data_files = _data_files(db)
+        stmts = {
+            "delete": "delete from lineitem where l_shipdate < "
+                      "date '1993-01-01'",
+            "update": "update lineitem set l_discount = l_discount + 0.01 "
+                      "where l_orderkey % 100 = 0",
+            "insert_select": "insert into lineitem select * from lineitem "
+                             "where l_orderkey % 1000 = 1",
+            "copy": f"copy lineitem from '{csv_path}'"}
+        for key, text in stmts.items():
+            tag, s = timed(lambda: db.sql(text))
+            out["statements"][key] = {"tag": tag, "s": s}
+            if key == "delete":
+                if _data_files(db) != data_files:
+                    raise AssertionError("DELETE rewrote a data file")
+                out["bitmaps_after_delete"] = len(_bitmaps(db))
+        want = {"delete": int((li["l_shipdate"]
+                               < _days("1993-01-01")).sum()),
+                "copy": len(extra["l_orderkey"])}
+        for key, n in want.items():
+            if out["statements"][key]["tag"].split()[-1] != str(n):
+                raise AssertionError(f"{key}: {out['statements'][key]} != "
+                                     f"{n} rows")
+        ref = dml_reference(li, extra, cutoff)
+        out["live_rows"] = sum(db.store.live_rowcounts("lineitem"))
+        tables = []
+        fused = fused_agg._segment_reduce_fused
+
+        def keep(table):
+            tables.append(table)
+            return fused(table)
+
+        # the main path: every launch count set to 0 just before, read after
+        fused_agg._segment_reduce_fused = keep
+        try:
+            fused_agg.LAUNCHES = 0
+            res, cold_s = timed(lambda: db.sql(SQL_Q1))
+            launches = fused_agg.LAUNCHES
+        finally:
+            fused_agg._segment_reduce_fused = fused
+        if launches != 1:
+            raise AssertionError(f"Q1 after DML launched the fused kernel "
+                                 f"{launches} times")
+        check_q1(res, ref)
+        out.update(q1_after_cold_s=cold_s,
+                   q1_after_stage_ms=res.stats["stage_ms"])
+        form = _timed_form(torch, tables[0], "dml Q1's job table (SQL Q1 "
+                           "after DELETE, UPDATE, INSERT SELECT, COPY)", 20)
+        del tables
+        check_q1(q1_runs(db, "after_warm", reps), ref)
+        db.close()
+        del db
+        t = time.perf_counter()
+        db = greengage_tpu_torch.connect(path=path, numsegments=nseg)
+        out["reopen_s"] = time.perf_counter() - t
+        check_q1(q1_runs(db, "reopened", 2), ref)
+        vac, out["vacuum_s"] = timed(lambda: db.vacuum())
+        out["vacuum"] = vac
+        if _bitmaps(db):
+            raise AssertionError("a bitmap is left after VACUUM")
+        if sum(db.store.segment_rowcounts("lineitem")) != out["live_rows"]:
+            raise AssertionError("VACUUM lost or kept rows")
+        check_q1(q1_runs(db, "vacuumed", reps + 1), ref)
+        db.close()
+        out.update(fused_dense_agg_launches=launches,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   ok=True)
     finally:
+        shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(path, ignore_errors=True)
     out["directory_removed"] = not os.path.exists(path)
     emit(out)
     return launches, form
+
+
+def _data_files(db) -> set:
+    snap = db.store.manifest.snapshot()["tables"]["lineitem"]
+    return {r for f in snap["segfiles"].values() for r in f
+            if "@del." not in r}
+
+
+def _bitmaps(db) -> dict:
+    return db.store.manifest.snapshot()["tables"]["lineitem"].get(
+        "delmask", {})
 
 
 def main() -> int:
@@ -3612,14 +3825,18 @@ def main() -> int:
     check_launches = phase_tpch22_check(torch, args.nseg, CHECK_SF, name)
     durable_launches, durable_form = phase_durable(torch, data, args.nseg,
                                                    args.reps, name)
+    torch.cuda.empty_cache()
+    dml_launches, dml_form = phase_dml(torch, data, args.nseg, args.reps,
+                                       name, smi_line)
     del data
     torch.cuda.empty_cache()
-    # SQL Q1 from a reopened directory is this slice's main path: the
-    # kernel's numbers are those of the job table its cold run handed the
-    # kernel; EXPLAIN ANALYZE's Q1 table, the wire's, the spilled pass's,
-    # the synthetic Q1 table, the ROLLUP's two tables (summed per
-    # statement) and the tpch22 statements' tables stay beside them, and
-    # every earlier path is read as it was driven
+    # SQL Q1 after DELETE, UPDATE, INSERT SELECT and COPY in a directory
+    # is this slice's main path: the kernel's numbers are those of the job
+    # table its first run handed the kernel; the durable Q1's table,
+    # EXPLAIN ANALYZE's Q1 table, the wire's, the spilled pass's, the
+    # synthetic Q1 table, the ROLLUP's two tables (summed per statement)
+    # and the tpch22 statements' tables stay beside them, and every
+    # earlier path is read as it was driven
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     kernel["q1_table"] = {k: kernel[k] for k in keys}
     kernel["spill_pass_table"] = {k: pass_form[k] for k in keys}
@@ -3632,19 +3849,21 @@ def main() -> int:
         f["statement"]: dict({k: f[k] for k in keys},
                              launches=f["launches_cold"])
         for f in tpch22_forms}
-    kernel.update({k: durable_form[k] for k in keys})
+    kernel["durable_q1_table"] = {k: durable_form[k] for k in keys}
+    kernel.update({k: dml_form[k] for k in keys})
     kernel["max_abs_err"] = max(
         e for e in [kernel["max_abs_err"], pass_form["max_abs_err"],
                     wire_form["max_abs_err"], explain_form["max_abs_err"],
-                    durable_form["max_abs_err"]]
+                    durable_form["max_abs_err"], dml_form["max_abs_err"]]
         + [f["max_abs_err"] for f in forms + tpch22_forms]
         if e is not None)
-    kernel["measured_at"] = ("the job table SQL Q1 hands the kernel, "
-                             "staged from a reopened directory's block "
-                             "files")
-    kernel["launches"] = durable_launches
+    kernel["measured_at"] = ("the job table SQL Q1 hands the kernel after "
+                             "DELETE, UPDATE, INSERT SELECT and COPY in a "
+                             "directory")
+    kernel["launches"] = dml_launches
     kernel["launches_per_sql_rollup"] = rollup_launches
-    kernel["launches_by_path"] = {"sql_durable": durable_launches,
+    kernel["launches_by_path"] = {"sql_dml": dml_launches,
+                                  "sql_durable": durable_launches,
                                   "tpch22_check": check_launches,
                                   "tpch22_sf10": tpch22_launches,
                                   "sql_explain": explain_launches,

@@ -160,6 +160,11 @@ class Settings:
     brownout_exit_s: float = 5.0
     brownout_cache_factor: float = 0.5
     brownout_vmem_factor: float = 0.5
+    # autocommit appends (INSERT, COPY) commit through txid-named intent
+    # records (storage/manifest.py's write-intent path): same-table
+    # appenders commit with zero claim retries; off = the per-table CAS
+    # for every write
+    write_intents_enabled: bool = True
 
     def set(self, name: str, value) -> None:
         if not hasattr(self, name) or name.startswith("_"):

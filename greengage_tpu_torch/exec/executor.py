@@ -1217,7 +1217,7 @@ class Executor:
     def table_shapes(self, plan, snapshot, overrides: dict | None = None,
                      aux: dict | None = None) -> dict:
         """table -> TableShape of every scanned table. The staged capacity
-        is the largest segment's rows (a spill chunk caps it); the
+        is the largest segment's visible rows (a spill chunk caps it); the
         reference capacity is the JAX compiler's: that count's power of
         two (of the pinned segment's under a consistent direct dispatch),
         the chunk exactly, or an aux table's even split."""
@@ -1230,19 +1230,24 @@ class Executor:
                 cap = max(-(-max(n, 1) // self.nseg), 1)
                 out[table] = TableShape(table, cap, cap)
                 continue
+            # the reference capacity counts the manifest's rows, deleted
+            # ones too, as the JAX compiler does; the staged one the rows
+            # a scan reads (a deletion bitmap's rows are dropped)
             counts = self.store.segment_rowcounts(table, snapshot)
+            live = self.store.live_rowcounts(table, snapshot)
             chunk = overrides.get(table)
             if chunk is not None:
                 counts = [min(c, chunk) for c in counts]
-            cap = max(max(counts, default=0), 1)
+                live = [min(c, chunk) for c in live]
+            cap = max(max(live, default=0), 1)
             ds = directs[0] if all(d == directs[0] for d in directs) \
                 else None
             if chunk is not None:
-                ref = cap
+                ref = max(max(counts, default=0), 1)
             elif ds is not None and 0 <= ds < len(counts):
                 ref = _pow2(max(counts[ds], 1))
             else:
-                ref = _pow2(cap)
+                ref = _pow2(max(max(counts, default=0), 1))
             out[table] = TableShape(table, cap, ref)
         return out
 

@@ -35,19 +35,27 @@ run re-plans with the corrected estimate. ``db.fts`` probes every primary
 (runtime/fts.py).
 
 The statements handled: SELECT (joins, subqueries, window functions,
-UNION [ALL], GROUPING SETS / ROLLUP / CUBE, and SELECT without FROM — a
+UNION [ALL], GROUPING SETS / ROLLUP / CUBE, SELECT without FROM — a
 constant target list on the host, anything else through the ConstRel
-device path), EXPLAIN [ANALYZE] of a SELECT, CREATE TABLE (DISTRIBUTED BY
-/ RANDOMLY / REPLICATED), DROP TABLE, ANALYZE [table], CREATE EXTENSION,
-SET and SHOW of the settings the port holds, and ``load_table`` for bulk
-loads. Every other statement, and WITH RECURSIVE, raises a SqlError
-naming the ROADMAP item it waits for; a plan node the compiler cannot
-lower raises NotImplementedError before anything runs, never a wrong
-answer.
+device path — and WITH RECURSIVE, a fixpoint over worktables), EXPLAIN
+[ANALYZE] of a SELECT, CREATE TABLE (DISTRIBUTED BY / RANDOMLY /
+REPLICATED), DROP TABLE, ANALYZE [table], CREATE EXTENSION, SET and SHOW
+of the settings the port holds, INSERT (VALUES and SELECT), COPY FROM and
+TO a file, DELETE and UPDATE (autocommit: deletion bitmaps and appended
+row versions, the store's visimap), ``load_table`` for bulk loads and
+``vacuum`` for compaction. Writers are serialised against each other by
+``_RWLock`` (appends share it, one per table; DELETE, UPDATE and DDL hold
+it alone) and readers read one committed snapshot, so a statement never
+sees half of a write. Every other statement raises a SqlError naming the
+ROADMAP item it waits for; a plan node the compiler cannot lower raises
+NotImplementedError before anything runs, never a wrong answer.
 """
 
 from __future__ import annotations
 
+import copy as _copy
+import dataclasses as _dc
+import itertools
 import json
 import os
 import shutil
@@ -57,7 +65,8 @@ import time
 import warnings
 import weakref
 from collections import OrderedDict
-from contextlib import ExitStack
+from contextlib import ExitStack, contextmanager
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -82,7 +91,8 @@ from greengage_tpu_torch.runtime import overload as _overload
 from greengage_tpu_torch.runtime import trace as _trace
 from greengage_tpu_torch.runtime.fts import FtsProber
 from greengage_tpu_torch.runtime.interrupt import REGISTRY as _INTERRUPTS
-from greengage_tpu_torch.runtime.interrupt import StatementCancelled
+from greengage_tpu_torch.runtime.interrupt import (StatementCancelled,
+                                                  check_interrupts)
 from greengage_tpu_torch.runtime.logger import ClusterLog, counters, histograms
 from greengage_tpu_torch.runtime.resgroup import (ResourceGroup,
                                                  ResourceGroupManager)
@@ -97,15 +107,11 @@ from greengage_tpu_torch.storage import MemoryTableStore, TableStore
 # statements of the JAX session that wait for a later slice -> the ROADMAP
 # item that ports them
 _LATER = {
-    A.InsertStmt: "DML and COPY: ROADMAP Queue 1 item 1b",
-    A.CopyStmt: "DML and COPY: ROADMAP Queue 1 item 1b",
-    A.UpdateStmt: "DML and COPY: ROADMAP Queue 1 item 1b",
-    A.DeleteStmt: "DML and COPY: ROADMAP Queue 1 item 1b",
     A.TxStmt: "transactions: ROADMAP Queue 1 item 1a-iii (runtime/dtm.py)",
     A.DeclareCursorStmt: "cursors: ROADMAP Queue 1 item 1h",
     A.RetrieveStmt: "cursors: ROADMAP Queue 1 item 1h",
     A.CloseCursorStmt: "cursors: ROADMAP Queue 1 item 1h",
-    A.CreateExternalTableStmt: "external tables: ROADMAP Queue 1 item 1b",
+    A.CreateExternalTableStmt: "external tables: ROADMAP Queue 1 item 1b-ii",
     A.AlterTableStmt: "ALTER TABLE: ROADMAP Queue 1 item 1a-ii",
     A.CreateIndexStmt: "indexes: ROADMAP Queue 1 item 1a-ii",
     A.DropIndexStmt: "indexes: ROADMAP Queue 1 item 1a-ii",
@@ -224,6 +230,13 @@ class Database:
         # batch_serving_enabled is on
         self._batch_server = None
         self._batch_server_mu = threading.Lock()
+        # the writers' lock: DDL, DELETE, UPDATE and VACUUM hold it alone;
+        # autocommit appends (INSERT, COPY) share it, each under its
+        # table's own lock (_table_lock). Readers take neither: they read
+        # one committed snapshot
+        self._write_lock = _RWLock()
+        self._table_locks: dict = {}
+        self._table_locks_mu = threading.Lock()
         self._load_extensions()
 
     def _load_extensions(self) -> None:
@@ -403,6 +416,54 @@ class Database:
             return self._select(stmt)
         if isinstance(stmt, A.ExplainStmt):
             return self._explain(stmt)
+        if isinstance(stmt, (A.InsertStmt, A.CopyStmt)) \
+                and stmt.table in self.catalog:
+            # autocommit appends take the SHARED write mode plus their
+            # table's lock: appenders to different tables stage and commit
+            # at once (per-table delta manifests, write intents), while
+            # DDL, DELETE and UPDATE drain them through the exclusive mode
+            with self._write_lock.shared(), \
+                    (self._table_lock(stmt.table)
+                     if self._append_needs_table_lock(stmt.table)
+                     else _NullSlot()):
+                if isinstance(stmt, A.InsertStmt):
+                    return self._insert(stmt)
+                return self._copy(stmt)
+        # every other statement changes shared state (the catalog, the
+        # manifest, the dictionaries, the settings): one writer at a time
+        with self._write_lock:
+            return self._execute_write(stmt)
+
+    def _table_lock(self, table: str):
+        """The per-table append serializer (same-table appenders queue)."""
+        with self._table_locks_mu:
+            lk = self._table_locks.get(table)
+            if lk is None:
+                lk = self._table_locks[table] = threading.RLock()
+            return lk
+
+    def _append_needs_table_lock(self, table: str) -> bool:
+        """Must same-table appenders still queue? With write intents on,
+        appenders commit concurrently with no claim retry, unless the
+        table has a dictionary-coded TEXT column: codes two appenders
+        assign at once are reconciled only by the per-table claim's
+        conflict, so those tables keep the serializer (as in the JAX
+        session)."""
+        if not bool(self.settings.write_intents_enabled):
+            return True
+        schema = self.catalog.get(table)
+        return any(c.type.kind is T.Kind.TEXT and c.encoding != "raw"
+                   for c in schema.columns)
+
+    def _execute_write(self, stmt):
+        if isinstance(stmt, A.DeleteStmt):
+            return self._delete(stmt)
+        if isinstance(stmt, A.UpdateStmt):
+            return self._update(stmt)
+        if isinstance(stmt, (A.InsertStmt, A.CopyStmt)):
+            # its table does not exist: the statement raises as it would
+            return (self._insert(stmt) if isinstance(stmt, A.InsertStmt)
+                    else self._copy(stmt))
         if isinstance(stmt, A.CreateExtensionStmt):
             return self._create_extension(stmt)
         if isinstance(stmt, A.CreateTableStmt):
@@ -511,7 +572,493 @@ class Database:
 
     def load_table(self, table: str, columns: dict, valids: dict | None = None):
         """Bulk load host arrays (the gpfdist/COPY fast path)."""
-        return self.store.insert(table, columns, valids)
+        with self._write_lock.shared(), \
+                (self._table_lock(table)
+                 if table in self.catalog
+                 and self._append_needs_table_lock(table) else _NullSlot()):
+            return self.store.insert(table, columns, valids)
+
+    # ---- INSERT, COPY (the JAX session's _insert, _copy) ----------------
+    def _insert(self, stmt: A.InsertStmt) -> str:
+        schema = self.catalog.get(stmt.table)
+        if stmt.query is not None:
+            return self._insert_select(schema, stmt)
+        names = stmt.columns or schema.column_names
+        if set(names) != set(schema.column_names):
+            raise SqlError("INSERT must provide all columns")
+        cols: dict[str, list] = {n: [] for n in names}
+        valids: dict[str, list] = {n: [] for n in names}
+        binder = Binder(self.catalog, self.store)
+        scope = _EmptyScope()
+        for row in stmt.rows:
+            if len(row) != len(names):
+                raise SqlError("INSERT row arity mismatch")
+            for n, v in zip(names, row):
+                col = schema.column(n)
+                lit = binder._expr(v, scope)
+                if not isinstance(lit, E.Literal):
+                    raise SqlError("INSERT values must be literals")
+                lit = binder._coerce_literal(lit, col.type)
+                if lit.value is None:
+                    valids[n].append(False)
+                    cols[n].append(_zero_for(col.type))
+                else:
+                    valids[n].append(True)
+                    cols[n].append(lit.value)
+        enc_cols, enc_valids = {}, {}
+        for n in names:
+            col = schema.column(n)
+            if col.type.kind is T.Kind.TEXT:
+                enc_cols[n] = cols[n]
+            else:
+                enc_cols[n] = np.array(cols[n], dtype=col.type.np_dtype)
+            va = np.array(valids[n], dtype=bool)
+            if not va.all():
+                enc_valids[n] = va
+        n = self.store.insert(stmt.table, enc_cols, enc_valids)
+        return f"INSERT 0 {n}"
+
+    def _insert_select(self, schema, stmt) -> str:
+        """INSERT INTO t SELECT ...: run the query, convert the presented
+        values back to storage representation (DECIMAL re-scaled with
+        round-half-away, the engine's numeric rounding) and append."""
+        res = (self._select(stmt.query)
+               if not isinstance(stmt.query, A.UnionStmt)
+               else self._execute(stmt.query))
+        names = stmt.columns or schema.column_names
+        if set(names) != set(schema.column_names):
+            raise SqlError("INSERT must provide all columns")
+        if len(res.columns) != len(names):
+            raise SqlError(
+                f"INSERT SELECT arity mismatch: query returns "
+                f"{len(res.columns)} columns, target has {len(names)}")
+        cols: dict = {}
+        valids: dict = {}
+        for n, oid in zip(names, res._order):
+            c = schema.column(n)
+            data = res.cols[oid]
+            v = res.valids.get(oid)
+            if c.type.kind is T.Kind.DECIMAL:
+                f = np.asarray(data, dtype=np.float64) * (10.0 ** c.type.scale)
+                data = (np.floor(np.abs(f) + 0.5) * np.sign(f)).astype(
+                    np.int64)
+            elif c.type.kind is T.Kind.DATE:
+                data = (np.asarray(data, dtype="datetime64[D]")
+                        - np.datetime64("1970-01-01", "D")).astype(np.int32)
+            elif c.type.kind is T.Kind.TEXT:
+                data = ["" if s is None else str(s) for s in data]
+            else:
+                data = np.asarray(data)
+                if v is not None:
+                    # NULL slots may carry NaN or garbage: zero them so the
+                    # cast cannot fail
+                    data = np.where(v, data, 0)
+                data = data.astype(c.type.np_dtype)
+            cols[n] = data
+            if v is not None:
+                valids[n] = np.asarray(v, dtype=bool)
+        n = self.store.insert(schema.name, cols, valids)
+        return f"INSERT 0 {n}"
+
+    def _copy(self, stmt: A.CopyStmt) -> str:
+        """COPY t FROM 'file' [WITH (delimiter, header, null,
+        segment_reject_limit)]: the native reader first
+        (storage/csv_native.py), the quoting-aware reader for what it
+        cannot parse, rejected rows logged under SREH. COPY t TO 'file'
+        writes the table's rows as CSV. A gpfdist source is the ingest
+        plane's (ROADMAP Queue 1 item 10)."""
+        from greengage_tpu_torch.storage import csv_native
+
+        schema = self.catalog.get(stmt.table)
+        if stmt.path.startswith("gpfdist://"):
+            raise SqlError("COPY from a gpfdist:// source is not ported yet "
+                           "(ROADMAP Queue 1 item 10, runtime/ingest.py)")
+        delim = stmt.options.get("delimiter", ",")
+        header = str(stmt.options.get("header", "false")).lower() in (
+            "true", "1")
+        null_s = stmt.options.get("null", "")
+        if stmt.direction == "to":
+            res = self._select(A.SelectStmt(
+                items=[A.SelectItem(A.Star())],
+                from_=[A.BaseTable(stmt.table)]))
+            n = csv_native.write_file(stmt.path, res.rows(), delim,
+                                      schema.column_names if header
+                                      else None, null_s)
+            return f"COPY {n}"
+        reject_limit = stmt.options.get("segment_reject_limit")
+        reject_limit = int(reject_limit) if reject_limit is not None else None
+        if reject_limit is None:
+            parsed = None
+            try:
+                parsed = csv_native.parse_file(stmt.path, schema, delim,
+                                               header, null_s)
+            except (csv_native.CsvFallback, ValueError):
+                # quoted fields, custom NULL markers and bad data go to the
+                # reader below (its error names the offending line); the
+                # try covers the parse alone, never a write
+                pass
+            if parsed is not None:
+                n = self.store.insert(stmt.table, *parsed)
+                return f"COPY {n}"
+        with open(stmt.path, "rb") as f:
+            blob = f.read()
+        rejects: list = []
+        try:
+            text = blob.decode("utf-8")
+        except UnicodeDecodeError:
+            # undecodable lines are rejected, the numbering kept
+            lines = []
+            for li, raw in enumerate(blob.split(b"\n")):
+                try:
+                    lines.append(raw.decode("utf-8"))
+                except UnicodeDecodeError:
+                    rejects.append((li + 1, repr(raw), "invalid UTF-8"))
+                    lines.append("")
+            text = "\n".join(lines)
+        cols, valids, rej = csv_native.parse_csv_rows(text, schema, delim,
+                                                      header, null_s)
+        rejects.extend(rej)
+        if rejects and reject_limit is None:
+            line, _raw, err = rejects[0]
+            raise SqlError(f"COPY line {line}: {err}")
+        if reject_limit is not None and len(rejects) > reject_limit:
+            raise SqlError(
+                f"COPY aborted: {len(rejects)} rejected rows exceed "
+                f"SEGMENT REJECT LIMIT {reject_limit}")
+        if rejects:
+            csv_native.append_error_log(self.path, stmt.table, rejects)
+        enc_cols, enc_valids = {}, {}
+        for c in schema.columns:
+            va = np.array(valids[c.name], dtype=bool)
+            if c.type.kind is T.Kind.TEXT:
+                enc_cols[c.name] = cols[c.name]
+            else:
+                enc_cols[c.name] = np.array(cols[c.name],
+                                            dtype=c.type.np_dtype)
+            if not va.all():
+                enc_valids[c.name] = va
+        n = self.store.insert(stmt.table, enc_cols, enc_valids)
+        tag = f"COPY {n}"
+        if rejects:
+            tag += f" (rejected {len(rejects)} rows, logged)"
+        return tag
+
+    def error_log(self, table: str) -> list[dict]:
+        """Rejected-row log of a table (gp_read_error_log analog)."""
+        from greengage_tpu_torch.storage import csv_native
+
+        return csv_native.read_error_log(self.path, table)
+
+    # ---- DELETE, UPDATE, VACUUM (the visimap and SplitUpdate roles) ------
+    def _run_raw(self, sel_stmt):
+        """Plan and run a SELECT, its columns in storage form."""
+        planned, consts, outs = self._plan(sel_stmt)
+        res = self.executor.run(planned, consts, raw=True)
+        return res, outs
+
+    def _check_no_raw_dml(self, table: str) -> None:
+        schema = self.catalog.get(table)
+        if self.store.raw_column_names(table):
+            raise SqlError(
+                f'table "{table}" has raw-encoded TEXT columns: raw TEXT is '
+                "not ported yet (ROADMAP Queue 1 item 1e)")
+        if schema.is_partitioned:
+            raise SqlError("DELETE and UPDATE of a partitioned table are not "
+                           "ported yet (ROADMAP Queue 1 item 1a-ii)")
+
+    def _predicate_mask(self, table: str, where) -> np.ndarray:
+        """A DML predicate over every visible row: -> bool mask in Gather
+        order (segment-major, storage row order; the plain projection
+        keeps it), NULL = False."""
+        sel = A.SelectStmt(items=[A.SelectItem(where, alias="__dml_pred")],
+                           from_=[A.BaseTable(table)])
+        res, outs = self._run_raw(sel)
+        o = outs[0]
+        val = np.asarray(res.cols[o.id]).astype(bool)
+        v = res.valids.get(o.id)
+        return val if v is None else (val & np.asarray(v, bool))
+
+    def _visimap_masks(self, table: str, pred_mask: np.ndarray) -> dict:
+        """A predicate mask over the VISIBLE rows -> per-segment bitmaps
+        over all the segment's rows (1 = deleted). A replicated table
+        reads one copy and stamps every segment with its bitmap (its
+        copies share row order)."""
+        schema = self.catalog.get(table)
+        snap = self.store.manifest.snapshot()
+        replicated = schema.policy.kind is PolicyKind.REPLICATED
+        nseg = schema.policy.numsegments
+        full = self.store.segment_rowcounts(table, snap)
+        masks: dict = {}
+        off = 0
+        for seg in ([0] if replicated else range(nseg)):
+            keep = self.store.delmask_keep(table, seg, snap)
+            live = int(keep.sum()) if keep is not None else full[seg]
+            m = pred_mask[off: off + live]
+            off += live
+            if not m.any():
+                continue
+            newdel = (np.zeros(full[seg], np.uint8) if keep is None
+                      else (~keep).astype(np.uint8))
+            live_pos = (np.flatnonzero(keep) if keep is not None
+                        else np.arange(full[seg]))
+            newdel[live_pos[m]] = 1
+            masks[seg] = newdel
+        if off != len(pred_mask):
+            raise RuntimeError(
+                f"DML scan returned {len(pred_mask)} rows but storage holds "
+                f"{off} visible rows: a concurrent write raced the "
+                "statement; retry")
+        if replicated and masks:
+            masks = {s: masks[0] for s in range(nseg)}
+        return masks
+
+    def _delete(self, stmt: A.DeleteStmt) -> str:
+        """DELETE: a bitmap of the rows the predicate holds for (no data
+        file rewritten); without WHERE the table is republished empty.
+        The tag counts visible rows only."""
+        self._check_no_raw_dml(stmt.table)
+        _reject_dml_subqueries(stmt.where)
+        schema = self.catalog.get(stmt.table)
+        total = sum(self.store.live_rowcounts(stmt.table))
+        if stmt.where is None:
+            empty = {c.name: np.empty(0, dtype=c.type.np_dtype)
+                     for c in schema.columns}
+            self.store.replace_contents(stmt.table, empty, {})
+            return f"DELETE {total}"
+        mask = self._predicate_mask(stmt.table, stmt.where)
+        masks = self._visimap_masks(stmt.table, mask)
+        if masks:
+            self.store.set_delmask(stmt.table, masks)
+        return f"DELETE {int(mask.sum())}"
+
+    def _update(self, stmt: A.UpdateStmt) -> str:
+        """UPDATE: the matched rows' old versions marked in the bitmap and
+        their new versions appended, placed by their (new) distribution
+        key, in one commit; without WHERE the table is republished."""
+        self._check_no_raw_dml(stmt.table)
+        _reject_dml_subqueries(stmt.where)
+        schema = self.catalog.get(stmt.table)
+        seen = set()
+        for cname, _ in stmt.sets:
+            if cname not in schema.column_names:
+                raise SqlError(f'column "{cname}" of relation '
+                               f'"{stmt.table}" does not exist')
+            if cname in seen:
+                raise SqlError(f'multiple assignments to column "{cname}"')
+            seen.add(cname)
+        # one raw pass: every column, one slot per SET evaluated on the
+        # device, then the flag, tracked by position (user names never
+        # collide with these)
+        items = [A.SelectItem(A.Star())]
+        text_literals = {}
+        device_slots: dict[str, int] = {}
+        ncols = len(schema.columns)
+        next_slot = ncols
+        dict_dirty = False
+        for cname, e in stmt.sets:
+            col = schema.column(cname)
+            if col.type.kind is T.Kind.TEXT:
+                if isinstance(e, A.Str):
+                    code = self.store.dictionary(stmt.table, cname).encode(
+                        [e.value])[0]
+                    dict_dirty = True
+                    text_literals[cname] = np.int32(code)
+                    continue
+                if isinstance(e, A.Null):
+                    text_literals[cname] = None
+                    continue
+                items.append(A.SelectItem(e, alias=f"__new_{cname}"))
+            else:
+                tname, typmod = _sql_type_name(col.type)
+                items.append(A.SelectItem(A.CastExpr(e, tname, typmod),
+                                          alias=f"__new_{cname}"))
+            device_slots[cname] = next_slot
+            next_slot += 1
+        if dict_dirty:
+            self.store.flush_dicts(stmt.table)
+        flag = stmt.where if stmt.where is not None else A.Bool(True)
+        items.append(A.SelectItem(flag, alias="__upd"))
+        flag_slot = next_slot
+        visimap = stmt.where is not None
+        pred_mask = (self._predicate_mask(stmt.table, stmt.where)
+                     if visimap else None)
+        sel = A.SelectStmt(items=items, from_=[A.BaseTable(stmt.table)],
+                           where=stmt.where if visimap else None)
+        res, outs = self._run_raw(sel)
+        fo = outs[flag_slot]
+        fval = res.cols[fo.id].astype(bool)
+        fv = res.valids.get(fo.id)
+        mask = fval if fv is None else (fval & fv)   # NULL: not updated
+        enc, valids = {}, {}
+        for c, o in zip(schema.columns, outs[:ncols]):
+            old = np.ascontiguousarray(res.cols[o.id], dtype=c.type.np_dtype)
+            oldv = res.valids.get(o.id)
+            oldv = np.ones(len(old), bool) if oldv is None else oldv
+            if c.name in text_literals:
+                lit = text_literals[c.name]
+                if lit is None:
+                    new, newv = old, np.zeros(len(old), bool)
+                else:
+                    new = np.full(len(old), lit, dtype=np.int32)
+                    newv = np.ones(len(old), bool)
+            elif c.name in device_slots:
+                no = outs[device_slots[c.name]]
+                if (c.type.kind is T.Kind.TEXT and no.dict_ref is not None
+                        and no.dict_ref != (stmt.table, c.name)):
+                    raise SqlError("text UPDATE from a different dictionary "
+                                   "is not supported")
+                new = np.ascontiguousarray(res.cols[no.id],
+                                           dtype=c.type.np_dtype)
+                nv = res.valids.get(no.id)
+                newv = np.ones(len(new), bool) if nv is None else nv
+            else:
+                new, newv = old, oldv
+            merged = np.where(mask, new, old)
+            mergedv = np.where(mask, newv, oldv)
+            enc[c.name] = merged.astype(c.type.np_dtype)
+            if not mergedv.all():
+                valids[c.name] = mergedv
+        if visimap:
+            if len(res) != int(pred_mask.sum()):
+                raise RuntimeError(
+                    f"UPDATE matched-row scan returned {len(res)} rows but "
+                    f"the predicate pass marked {int(pred_mask.sum())}: a "
+                    "concurrent write raced the statement; retry")
+            masks = self._visimap_masks(stmt.table, pred_mask)
+            if masks or len(res):
+                self.store.update_split(stmt.table, masks, enc, valids)
+            return f"UPDATE {int(pred_mask.sum())}"
+        self.store.replace_contents(stmt.table, enc, valids)
+        return f"UPDATE {int(mask.sum())}"
+
+    def vacuum(self, table: str | None = None) -> dict:
+        """Compact deletion bitmaps away (lazy VACUUM for the visimap):
+        every table carrying a bitmap is rewritten with its live rows
+        only, at its width. -> {table: live rows kept}."""
+        with self._write_lock:
+            compacted: dict = {}
+            snap = self.store.manifest.snapshot()
+            for t, tmeta in snap.get("tables", {}).items():
+                if table is not None and t != table:
+                    continue
+                if tmeta.get("delmask"):
+                    compacted[t] = self.store.rewrite_table(
+                        t, self.catalog.get(t).policy.numsegments)
+            self.store.reap_gc()
+        return compacted
+
+    # ---- WITH RECURSIVE (nodeRecursiveunion.c / WorkTableScan role) ------
+    def _select_recursive(self, stmt, rctes: dict) -> Result:
+        """Fixpoint iteration in the session: each recursive CTE is
+        materialised by running its base term, then its recursive term
+        against a worktable of the previous iteration's NEW rows until
+        none appear. Every term runs as an ordinary statement; the
+        accumulation tables are real (ephemeral) tables, so the final
+        query plans and distributes as any other. UNION (not ALL) drops
+        rows seen in earlier iterations, which is also the cycle guard."""
+        max_iter = 500
+        mapping: dict[str, str] = {}
+        created: list[str] = []
+        # unique names: concurrent statements, and other processes on the
+        # same directory, never collide
+        uid = f"{os.getpid():x}_{next(_REC_COUNTER)}"
+        try:
+            for name, rc in rctes.items():
+                acc = f"__rec_{uid}_{name}"
+                wtbl = f"__recw_{uid}_{name}"
+                base = _rename_base_tables(_copy.deepcopy(rc.base), mapping)
+                # bound once for exact output types (a constant-only base
+                # term skips the binder and infers them from its result)
+                outs0 = None
+                try:
+                    _, outs0 = Binder(
+                        self.catalog, self.store,
+                        subquery_executor=self._scalar_subquery
+                    ).bind_select(_copy.deepcopy(base))
+                except SqlError:
+                    pass
+                r = self._execute(base)
+                if outs0 is None:
+                    outs0 = [_inferred_col(nm, np.asarray(r.cols[cid]))
+                             for nm, cid in zip(r.columns, r._order)]
+                coldefs = ", ".join(f"{c.name} {_ddl_type(c.type)}"
+                                    for c in outs0)
+                for t in (acc, wtbl):
+                    self.sql(f"drop table if exists {t}")
+                    self.sql(f"create table {t} ({coldefs}) "
+                             "distributed randomly")
+                    created.append(t)
+                rows = r.rows()
+                seen = set(rows) if not rc.union_all else None
+                if seen is not None:
+                    rows = list(seen)
+                self._load_rows(acc, outs0, rows)
+                cur = rows
+                it = 0
+                while cur:
+                    it += 1
+                    if it > max_iter:
+                        raise QueryError(
+                            f'recursive CTE "{name}" exceeded {max_iter} '
+                            "iterations (cycle? use UNION instead of UNION "
+                            "ALL, or add a bound)")
+                    self.sql(f"delete from {wtbl}")
+                    self._load_rows(wtbl, outs0, cur)
+                    rec = _rename_base_tables(_copy.deepcopy(rc.rec),
+                                              {**mapping, name: wtbl})
+                    nr = self._execute(rec).rows()
+                    if seen is not None:
+                        fresh = []
+                        for t in nr:
+                            if t not in seen:
+                                seen.add(t)
+                                fresh.append(t)
+                        nr = fresh
+                    if nr:
+                        self._load_rows(acc, outs0, nr)
+                    cur = nr
+                mapping[name] = acc
+            final = _rename_base_tables(_copy.deepcopy(stmt), mapping)
+            if hasattr(final, "_recursive_ctes"):
+                del final._recursive_ctes
+            return self._execute(final)
+        finally:
+            for t in created:
+                try:
+                    self.sql(f"drop table if exists {t}")
+                except Exception:
+                    pass
+
+    def _load_rows(self, table: str, outs, rows: list) -> None:
+        """Host row tuples -> one bulk load of ``outs``' types (DECIMAL
+        results arrive descaled as float64 and reload as double
+        precision, _ddl_type)."""
+        cols: dict = {}
+        valids: dict = {}
+        epoch = np.datetime64("1970-01-01")
+        for i, c in enumerate(outs):
+            vals = [r[i] for r in rows]
+            mask = np.array([v is not None for v in vals], bool)
+            kind = c.type.kind
+            if kind is T.Kind.TEXT:
+                cols[c.name] = ["" if v is None else str(v) for v in vals]
+            elif kind in (T.Kind.FLOAT64, T.Kind.DECIMAL):
+                cols[c.name] = np.array(
+                    [0.0 if v is None else float(v) for v in vals],
+                    np.float64)
+            elif kind is T.Kind.DATE:
+                cols[c.name] = np.array(
+                    [0 if v is None else
+                     int((np.datetime64(v, "D") - epoch)
+                         .astype("timedelta64[D]").astype(np.int64))
+                     for v in vals], np.int32)
+            else:
+                cols[c.name] = np.array(
+                    [0 if v is None else int(v) for v in vals],
+                    c.type.np_dtype)
+            valids[c.name] = None if mask.all() else mask
+        if rows:
+            self.load_table(table, cols, valids)
 
     # ------------------------------------------------------------------
     def _plan(self, stmt, force_multi_join: bool = False,
@@ -542,11 +1089,9 @@ class Database:
         return planned, binder.consts, outs
 
     def _select(self, stmt) -> Result:
-        if getattr(stmt, "_recursive_ctes", None):
-            # the JAX session's fixpoint deletes from and loads rows into
-            # its worktables: it waits for DML
-            raise SqlError("recursive CTEs are not ported yet (ROADMAP "
-                           "Queue 1 item 1b)")
+        rctes = getattr(stmt, "_recursive_ctes", None)
+        if rctes:
+            return self._select_recursive(stmt, rctes)
         if isinstance(stmt, A.SelectStmt) and not stmt.from_ \
                 and not stmt.group_by and not stmt.having \
                 and not stmt.distinct and not stmt.order_by \
@@ -1084,3 +1629,184 @@ class Database:
         if self._path_rm is not None:
             self._path_rm()
 
+
+class _RWLock:
+    """The writers' lock, with a SHARED mode for appenders (the JAX
+    session's). Exclusive: DDL, DELETE, UPDATE, VACUUM; one holder,
+    re-entrant per thread. Shared: autocommit appends, any number of
+    holders, each also under its table's lock. A waiting exclusive
+    holder stops NEW shared entrants (no writer starvation); a thread
+    holding exclusive may take shared (nested statement paths). Waits are
+    cut into slices, each a cancellation point."""
+
+    def __init__(self):
+        self._c = threading.Condition()
+        self._excl: int | None = None     # owning thread ident
+        self._depth = 0
+        self._excl_waiting = 0
+        self._shared: dict[int, int] = {}  # thread ident -> hold depth
+
+    def __enter__(self):
+        me = threading.get_ident()
+        with self._c:
+            self._excl_waiting += 1
+            try:
+                while not (self._excl in (None, me)
+                           and all(t == me for t in self._shared)):
+                    self._c.wait(0.25)
+                    check_interrupts()
+            finally:
+                self._excl_waiting -= 1
+            self._excl = me
+            self._depth += 1
+        return self
+
+    def __exit__(self, *a):
+        with self._c:
+            self._depth -= 1
+            if self._depth == 0:
+                self._excl = None
+            self._c.notify_all()
+        return False
+
+    @contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        with self._c:
+            while (self._excl not in (None, me)
+                   or (self._excl_waiting and self._excl is None
+                       and me not in self._shared)):
+                self._c.wait(0.25)
+                check_interrupts()
+            self._shared[me] = self._shared.get(me, 0) + 1
+        try:
+            yield self
+        finally:
+            with self._c:
+                n = self._shared.get(me, 1) - 1
+                if n:
+                    self._shared[me] = n
+                else:
+                    self._shared.pop(me, None)
+                self._c.notify_all()
+
+
+class _NullSlot:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+
+class _EmptyScope:
+    tables: list = []
+
+    def resolve(self, parts):
+        raise SqlError(f'column "{".".join(parts)}" does not exist')
+
+
+def _zero_for(t: T.SqlType):
+    if t.kind is T.Kind.TEXT:
+        return ""
+    return 0
+
+
+def _reject_dml_subqueries(where) -> None:
+    """IN/EXISTS in a DML WHERE need their own survivor semantics (x IN S
+    being NULL must survive a DELETE): refused, as in the JAX session."""
+    if where is None:
+        return
+    stack = [where]
+    while stack:
+        n = stack.pop()
+        if isinstance(n, (A.InSubquery, A.ExistsExpr)):
+            raise SqlError("IN/EXISTS subqueries in DELETE/UPDATE WHERE are "
+                           "not supported yet")
+        for f in ("left", "right", "arg", "lo", "hi", "else_"):
+            v = getattr(n, f, None)
+            if isinstance(v, A.ANode):
+                stack.append(v)
+        for v in getattr(n, "args", []) or []:
+            stack.append(v)
+        for v in getattr(n, "values", []) or []:
+            if isinstance(v, A.ANode):
+                stack.append(v)
+        for cond, val in getattr(n, "whens", []) or []:
+            stack.append(cond)
+            stack.append(val)
+
+
+def _sql_type_name(t: T.SqlType) -> tuple[str, tuple[int, ...]]:
+    """SqlType -> (type name, typmod) of a CAST."""
+    k = t.kind
+    if k is T.Kind.DECIMAL:
+        return "numeric", (38, t.scale)
+    return {
+        T.Kind.INT32: ("int", ()),
+        T.Kind.INT64: ("bigint", ()),
+        T.Kind.FLOAT64: ("double precision", ()),
+        T.Kind.DATE: ("date", ()),
+        T.Kind.BOOL: ("bool", ()),
+        T.Kind.TEXT: ("text", ()),
+    }[k]
+
+
+_REC_COUNTER = itertools.count()
+
+
+def _ddl_type(t) -> str:
+    """SqlType -> DDL text of a recursive CTE's worktable (DECIMAL as
+    double precision: the host sees descaled floats)."""
+    k = t.kind
+    if k is T.Kind.INT32:
+        return "int"
+    if k is T.Kind.INT64:
+        return "bigint"
+    if k in (T.Kind.FLOAT64, T.Kind.DECIMAL):
+        return "double precision"
+    if k is T.Kind.BOOL:
+        return "bool"
+    if k is T.Kind.DATE:
+        return "date"
+    return "text"
+
+
+def _rename_base_tables(node, mapping: dict):
+    """Rewrite BaseTable references by ``mapping`` everywhere in the AST,
+    subqueries included (the worktable substitution)."""
+    if isinstance(node, A.BaseTable):
+        if node.name in mapping:
+            if node.alias is None:
+                node.alias = node.name       # keep qualified refs valid
+            node.name = mapping[node.name]
+        return node
+    if isinstance(node, A.ANode):
+        for f in _dc.fields(node):
+            v = getattr(node, f.name)
+            setattr(node, f.name, _rename_base_tables(v, mapping))
+        return node
+    if isinstance(node, list):
+        return [_rename_base_tables(v, mapping) for v in node]
+    if isinstance(node, tuple):
+        return tuple(_rename_base_tables(v, mapping) for v in node)
+    return node
+
+
+def _inferred_col(name: str, arr):
+    """Name and type from a host result array: the typing of a
+    constant-only recursive base term."""
+    k = arr.dtype.kind
+    if k == "M":
+        t = T.DATE
+    elif k == "b":
+        t = T.BOOL
+    elif k == "i" and arr.dtype.itemsize <= 4:
+        t = T.INT32
+    elif k in ("i", "u"):
+        t = T.INT64
+    elif k == "f":
+        t = T.FLOAT64
+    else:
+        t = T.TEXT
+    return SimpleNamespace(name=name, type=t)

@@ -359,6 +359,7 @@ class CopyStmt(ANode):
     table: str
     path: str
     options: dict = field(default_factory=dict)
+    direction: str = "from"       # COPY ... FROM 'file' | TO 'file'
 
 
 @dataclass

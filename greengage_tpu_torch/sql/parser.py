@@ -1085,7 +1085,12 @@ class Parser:
     def copy_stmt(self) -> A.CopyStmt:
         self.expect("kw", "copy")
         table = self.expect("name")[1]
-        self.expect("kw", "from")
+        direction = "from"
+        if self.at_word("to"):
+            self.next()
+            direction = "to"
+        else:
+            self.expect("kw", "from")
         path = self.expect("str")[1]
         options = {}
         if self.accept("kw", "with"):
@@ -1099,7 +1104,7 @@ class Parser:
                 if not self.accept("op", ","):
                     break
             self.expect("op", ")")
-        return A.CopyStmt(table, path, options)
+        return A.CopyStmt(table, path, options, direction)
 
 
 def _references_table(node, name: str) -> bool:

@@ -76,10 +76,11 @@ opens in the other. Ported: the root (``_root``, ``_ensure_root``,
 JAX package's write-intent MERGE lines included, so its directories read
 here), the ROOT path (``prepare``/``commit``/``abort``, ``commit_tx``), the
 DELTA path ``load_table`` commits through (``prepare_delta``/
-``commit_delta``/``abort_delta``), ``fold``, ``recover`` and the delta and
-intent-marker sweeps. Staging write intents waits for DML (ROADMAP Queue 1
-item 1b) and raises naming it; a directory fenced by a promoted standby
-(item 10) refuses every commit, as in the JAX package.
+``commit_delta``/``abort_delta``, ``commit_tables_tx``), the WRITE-INTENT
+path INSERT and COPY append through (``stage_intent``/``commit_intent``/
+``abort_intent``), ``fold``, ``recover`` and the delta and intent-marker
+sweeps; a directory fenced by a promoted standby (item 10) refuses every
+commit, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -662,18 +663,101 @@ class Manifest:
                 pass
 
     # ---- WRITE-INTENT path (concurrent same-table appends) -------------
-    _INTENTS_LATER = ("write intents (concurrent same-table appends, the "
-                      "streaming ingest plane): ROADMAP Queue 1 item 1b")
+    def _intent_path(self, table: str, txid: str) -> str:
+        # txid-unique names: no exclusive-link CAS, hence no claim retry
+        return os.path.join(self.intent_dir, f"{table}.{txid}.intent")
 
     def stage_intent(self, table: str, records: list,
                      streams: dict | None = None) -> dict:
-        raise NotImplementedError(self._INTENTS_LATER)
+        """Stage a per-writer write-intent for an APPEND-ONLY commit.
+
+        ``records`` is the _write_segfiles output — [(seg, [rels], nrows)]
+        per written segment. The durable intent file is in-doubt crash
+        evidence plus the expiry token commit_intent re-checks; it is
+        never read by compose (the merge line carries the records), so
+        sweeping it can only abort an uncommitted writer, never corrupt a
+        committed state. Returns the commit handle."""
+        os.makedirs(self.intent_dir, exist_ok=True)
+        self._ensure_root()
+        txid = uuid.uuid4().hex[:12]
+        recs = [(int(seg), list(rels), int(n)) for seg, rels, n in records]
+        marks = {str(k): int(v) for k, v in (streams or {}).items()}
+        data = {"txid": txid, "table": table, "records": recs,
+                "streams": marks}
+        path = self._intent_path(table, txid)
+        fd, tmp = tempfile.mkstemp(dir=self.intent_dir, prefix=".intent")
+        with os.fdopen(fd, "w") as f:
+            json.dump(data, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        # crash window: intent staged, merge line not durable — recover()
+        # rolls this writer back exactly like a stale delta claim
+        faults.check("intent_stage")
+        return {"txid": txid, "table": table, "records": recs,
+                "streams": marks, "path": path}
 
     def commit_intent(self, handle: dict) -> int:
-        raise NotImplementedError(self._INTENTS_LATER)
+        """Resolve a staged intent: append ONE fsynced merge line, then
+        remove the intent file. Returns the new effective version.
+
+        The intent file is re-checked first, mirroring commit_delta's
+        claim re-validation: a writer parked past the GC grace (or raced
+        by recover()/DROP) finds its token gone and gets a clean
+        write-write conflict instead of publishing rows whose segfiles
+        the orphan sweep may already have reclaimed."""
+        path = handle["path"]
+        if not os.path.exists(path):
+            counters.inc("manifest_intent_conflict_total")
+            raise IntentConflict(
+                f"write-write conflict: staged intent {handle['table']}."
+                f"{handle['txid']} expired before commit (removed by GC, "
+                "recovery, or DROP TABLE)")
+        rec: dict = {"x": handle["txid"],
+                     "w": {handle["table"]: handle["records"]}}
+        if handle.get("streams"):
+            rec["s"] = {handle["table"]: handle["streams"]}
+        line = (json.dumps(rec) + "\n").encode()
+        # crash window A: resolve reached, line not appended — rollback
+        faults.check("intent_resolve")
+        with self._log_lock:
+            fd = os.open(self.log_path,
+                         os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX)
+                # token re-check ATOMIC with the append: a sweep or DROP
+                # that removes the token strictly before this point keeps
+                # the merge line out of the log entirely, so a "w" line
+                # can never land after its table's drop tombstone
+                if not os.path.exists(path):
+                    counters.inc("manifest_intent_conflict_total")
+                    raise IntentConflict(
+                        f"write-write conflict: staged intent "
+                        f"{handle['table']}.{handle['txid']} expired "
+                        "before commit (removed by GC, recovery, or "
+                        "DROP TABLE)")
+                # promotion fence, atomic with the append (see commit_delta)
+                self._check_fence()
+                os.write(fd, line)
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+        # crash window B: line durable, marker not yet removed — the
+        # commit SURVIVES; the leftover marker is garbage for the sweep
+        faults.check("intent_resolve")
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+        counters.inc("manifest_intent_commits")
+        return self.version()
 
     def abort_intent(self, handle: dict) -> None:
-        raise NotImplementedError(self._INTENTS_LATER)
+        """Withdraw a staged intent (rollback before the merge line)."""
+        try:
+            os.remove(handle["path"])
+        except OSError:
+            pass
 
     def sweep_intents(self, grace_s: float | None = None) -> int:
         """Remove write-intent files older than the grace window — the
@@ -971,3 +1055,13 @@ class Manifest:
             self.abort(v)
             raise
         return v
+
+    def commit_tables_tx(self, tx: dict, tables: list[str]) -> int:
+        """One-phase DELTA convenience: publish ``tables``' states from
+        ``tx`` through the per-table path. Returns the effective version."""
+        handle = self.prepare_delta(tx, tables)
+        try:
+            return self.commit_delta(handle)
+        except BaseException:
+            self.abort_delta(handle)
+            raise

@@ -12,7 +12,8 @@ a cluster directory in the JAX package's on-disk format.
     ``commit_delta`` of a ``load_table`` leaves the reopened table wholly
     without that load; killed after the commit, with all of it — the
     shape of tests/test_crash_recovery.py's kill -9 tests, driven by
-    ``load_table`` (INSERT waits for ROADMAP Queue 1 item 1b). The child
+    ``load_table`` with ``write_intents_enabled`` off (the write-intent
+    path's kills are tests/test_torch_write_intents.py's). The child
     parks on the ``dtx_after_prepare`` / ``dtx_after_commit`` fault
     points the store's commit passes.
   * A flipped byte in a segfile raises ``CorruptionError`` with the JAX
@@ -175,6 +176,9 @@ import numpy as np
 import greengage_tpu_torch
 from greengage_tpu_torch.runtime.faultinject import faults
 db = greengage_tpu_torch.connect(sys.argv[1], device="cpu")
+# the crash points of the per-table delta commit: an int table's append
+# takes the write-intent path unless it is off
+db.sql("set write_intents_enabled = off")
 faults.inject(sys.argv[3], "sleep", sleep_s=120)
 print("LOADING", flush=True)
 db.load_table("t", {"k": np.arange(1000, 1050), "v": np.arange(50)})
@@ -255,7 +259,7 @@ def test_kill9_after_the_commit_keeps_the_whole_load(tmp_path):
     _setup(path)
     # the setup's own commit line is in the log until the child's open
     # folds it: wait for a line past its sequence
-    base = int(Manifest(path)._compose()["seqs"]["t"])
+    base = int(Manifest(path)._compose()["seqs"].get("t", 0))
     _kill_child_when(path, "dtx_after_commit",
                      lambda: any(int((ln.get("t") or {}).get("t", 0)) > base
                                  for ln in _committed_lines(path)))
@@ -267,6 +271,64 @@ def test_kill9_after_the_commit_keeps_the_whole_load(tmp_path):
             (50,)]
     finally:
         d.close()
+
+
+# ---- deletion bitmaps and intent merges, across the formats ----------------
+
+DML = ("create table w (k int, g int, v bigint) distributed by (k)",
+       "create table r (a int, b int) distributed replicated",
+       "insert into w values (1, 1, 10), (2, 2, 20), (3, 3, 30)",
+       "delete from w where k % 7 = 0",
+       "update w set v = v + 1 where g < 5",
+       "update w set k = k + 100000 where k % 11 = 0",
+       "insert into w select k + 50000, g, v from w where k % 13 = 0",
+       "delete from r where a < 10",
+       "update r set b = -1 where a = 50")
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_bitmaps_and_intent_merges_open_in_the_other_package(
+        tmp_path, devices8, writer):
+    """A directory with deletion bitmaps (DELETE, UPDATE) and write-intent
+    merge lines (INSERT) written by one package, closed unfolded, opens in
+    the other with the same rows and the same live_rowcounts."""
+    path = str(tmp_path / "c")
+    if writer == "jax":
+        w = greengage_tpu.connect(path=path, numsegments=4)
+    else:
+        w = greengage_tpu_torch.connect(path=path, numsegments=4,
+                                        device="cpu")
+    w.sql(DML[0])
+    w.sql(DML[1])
+    w.load_table("w", {"k": np.arange(3000) + 10,
+                       "g": np.arange(3000) % 31,
+                       "v": np.arange(3000, dtype=np.int64)})
+    w.load_table("r", {"a": np.arange(100), "b": np.arange(100)})
+    for text in DML[2:]:
+        w.sql(text)
+    snap = w.store.manifest.snapshot()
+    assert snap["tables"]["w"].get("delmask")
+    assert snap["tables"]["r"].get("delmask")
+    queries = ("select k, g, v from w order by k", "select a, b from r "
+               "order by a", "select count(*), sum(v) from w where g = 3")
+    want = [w.sql(q).rows() for q in queries]
+    counts = {t: w.store.live_rowcounts(t) for t in ("w", "r")}
+    if writer == "port":
+        w.close()
+        o = greengage_tpu.connect(path=path)
+    else:
+        o = greengage_tpu_torch.connect(path=path, device="cpu")
+    try:
+        for q, rows in zip(queries, want):
+            assert o.sql(q).rows() == rows, q
+        assert {t: o.store.live_rowcounts(t) for t in ("w", "r")} == counts
+        # and it goes on writing there: a VACUUM, then the writer reads it
+        o.vacuum()
+        assert not o.store.manifest.snapshot()["tables"]["w"].get("delmask")
+        assert o.sql(queries[0]).rows() == want[0]
+    finally:
+        if writer == "jax":
+            o.close()
 
 
 # ---- a flipped byte ---------------------------------------------------------
