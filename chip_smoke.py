@@ -126,7 +126,25 @@ Phases, one JSON line each; any failure exits non-zero:
            against its plain version at that job table); close, reopen
            and Q1 again; VACUUM and Q1 again, no bitmap left. Each
            statement's seconds and rows, cold and warm Q1 before and
-           after; the directory removed at the end
+           after; the directory kept for the prune phase
+  prune    on the same directory: lineitem_p, TPC-H lineitem partitioned
+           by year of l_shipdate (1992-1998 and a DEFAULT), loaded with
+           load_table in l_shipdate order (write seconds, bytes on disk);
+           Q1 over it (8 of 8 children; the kernel line's numbers are its
+           job table's: this is the main path), a month-range Q1 (2 of 8
+           children, the zone-map blocks kept exactly as numpy derives them
+           from the load), Q6 (1994, 2 of 8) and a join to a 2,557-day
+           calendar keeping 2 of 8 children at run time, each exact
+           against numpy, one fused launch per Q1 (the kernel held against
+           its plain version and the library route at both Q1 job tables);
+           CREATE INDEX on orders (o_custkey) and one customer's orders
+           (fewer blocks than total, exact, the build seconds); a cold Q1
+           on lineitem twice, the second from the block cache; a brownout
+           shrinking the cache (within its limit at once, the card's
+           allocated bytes down); ALTER TABLE ... DROP PARTITION of 1992
+           and Q1 exact without it; the directory removed; expand from
+           ``--nseg`` to twice that at SF 0.1 (the cut, listed) in its own
+           directory, Q1 exact at the new width
   dryrun   the distributed step's exact-sum check
 
 then the kernel table, the nvidia-smi line, and as the last line
@@ -152,8 +170,6 @@ FLOAT_RTOL = 1e-12
 # the in-memory store's numbers (sql and joins phases), beside which the
 # durable phase prints the same statements read from a directory
 MEMORY_STORE: dict = {}
-
-
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -538,12 +554,13 @@ def phase_kernel(torch, dev, nseg_q1: int, rows_q1: int) -> dict:
 # TPC-H Q1 against a numpy reference
 # ---------------------------------------------------------------------------
 
-def q1_reference(li: dict, cutoff: int) -> dict:
+def q1_reference(li: dict, cutoff: int, mask=None) -> dict:
     """Independent numpy Q1 over the generator's columns: exact int64
     sums and counts per (returnflag, linestatus) with np.add.at, avg as
-    the same float64 division the engine does."""
+    the same float64 division the engine does. ``mask`` replaces the
+    shipdate cutoff (a month-range Q1)."""
     rf, ls = li["l_returnflag"], li["l_linestatus"]
-    m = li["l_shipdate"] <= cutoff
+    m = li["l_shipdate"] <= cutoff if mask is None else mask
     nls = len(ls.vocab)
     g = (rf.codes.astype(np.int64) * nls + ls.codes)[m]
     qty = li["l_quantity"][m]
@@ -776,6 +793,7 @@ def phase_sql(torch, data, nseg: int, reps: int, name: str, q1_table,
     import greengage_tpu_torch
     from greengage_tpu_torch import entry
     from greengage_tpu_torch.ops import fused_agg
+    from greengage_tpu_torch.runtime.logger import counters
     from greengage_tpu_torch.sql.parser import parse
     from greengage_tpu_torch.utils import tpch
 
@@ -826,6 +844,7 @@ def phase_sql(torch, data, nseg: int, reps: int, name: str, q1_table,
         return out, time.perf_counter() - t
 
     warm = {"sql_q1": [], "plan_q1": [], "sql_q6": [], "sql_minmax": []}
+    stage = db.store.blockcache.cache("stage")
     for i in range(reps + 1):
         before = fused_agg.LAUNCHES
         again, s1 = timed(lambda: db.sql(SQL_Q1))
@@ -840,6 +859,18 @@ def phase_sql(torch, data, nseg: int, reps: int, name: str, q1_table,
             warm["plan_q1"].append(s2)
             warm["sql_q6"].append(s3)
             warm["sql_minmax"].append(s4)
+        else:
+            io_base, staged0 = counters.snapshot(), set(stage.keys())
+    # at the default budgets the warm statements restage nothing: the
+    # staged SF10 columns stay in the stage member (the card's budget)
+    warm_io = counters.since(io_base, "scan_")
+    if warm_io.get("scan_cache_evict") or set(stage.keys()) != staged0:
+        raise AssertionError(f"the warm statements restaged at the default "
+                             f"budgets: {warm_io}")
+    block_cache = {k: v for k, v in db.store.blockcache.stats().items()
+                   if k != "caches"}
+    block_cache.update(scan_cache_limit_mb=db.settings.scan_cache_limit_mb,
+                       stage_entries=len(stage), warm_scan_io=warm_io)
     check_q1(again, q1_ref)
     if int(again6.raw[again6._order[0]][0]) != want6:
         raise AssertionError("a warm Q6 differs from the numpy reference")
@@ -883,6 +914,7 @@ def phase_sql(torch, data, nseg: int, reps: int, name: str, q1_table,
                         q1_cold_s=cold_s, q1_warm_median_s=med["sql_q1"])
     emit({"phase": "sql", "sf_rows": len(li["l_orderkey"]), "nseg": nseg,
           "device": name, "load_s": load_s, "analyze_s": analyze_s,
+          "block_cache": block_cache,
           "q1_parse_bind_plan_ms": plan_ms,
           "q1_cold_s": cold_s, "q6_cold_s": cold6_s,
           "q1_cold_stats": {k: v for k, v in res.stats.items()
@@ -3603,9 +3635,10 @@ def phase_dml(torch, data, nseg: int, reps: int, name: str,
               smi_line: str) -> tuple:
     """INSERT, COPY, DELETE, UPDATE and VACUUM on the durable phase's
     directory (SF10 lineitem, 8 segments), then SQL Q1 against numpy after
-    the same changes, before and after a reopen and after VACUUM. -> (the
-    fused kernel's launches by the first Q1 after the changes, the
-    _timed_form row of its job table)."""
+    the same changes, before and after a reopen and after VACUUM. The
+    directory stays for the prune phase (main removes it). -> (the fused
+    kernel's launches by the first Q1 after the changes, the _timed_form
+    row of its job table, the numpy Q1 of lineitem after the changes)."""
     import os
     import shutil
     import tempfile
@@ -3719,12 +3752,13 @@ def phase_dml(torch, data, nseg: int, reps: int, name: str,
         out.update(fused_dense_agg_launches=launches,
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    ok=True)
+    except BaseException:
+        shutil.rmtree(path, ignore_errors=True)
+        raise
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-        shutil.rmtree(path, ignore_errors=True)
-    out["directory_removed"] = not os.path.exists(path)
     emit(out)
-    return launches, form
+    return launches, form, ref
 
 
 def _data_files(db) -> set:
@@ -3736,6 +3770,453 @@ def _data_files(db) -> set:
 def _bitmaps(db) -> dict:
     return db.store.manifest.snapshot()["tables"]["lineitem"].get(
         "delmask", {})
+
+
+# ---------------------------------------------------------------------------
+# prune: partitioned tables, zone maps, block indexes, the block cache,
+# ALTER TABLE and expand
+# ---------------------------------------------------------------------------
+
+PRUNE_MONTH = ("1995-06-01", "1995-07-01")
+SQL_Q1_P = SQL_Q1.replace("from lineitem", "from lineitem_p")
+SQL_Q1_MONTH = SQL_Q1.replace("from lineitem", "from lineitem_p").replace(
+    "where l_shipdate <= date '1998-12-01' - interval '90' day",
+    f"where l_shipdate >= date '{PRUNE_MONTH[0]}' "
+    f"and l_shipdate < date '{PRUNE_MONTH[1]}'")
+SQL_Q6_P = SQL_Q6.replace("from lineitem", "from lineitem_p")
+SQL_DYN = ("select c_quarter, sum(l_extendedprice) from lineitem_p join "
+           "calendar on l_shipdate = c_date where c_year = 1995 "
+           "group by c_quarter")
+EXPAND_DIR = "_expand_smoke"
+EXPAND_SF = 0.1
+# the host budget of the block-cache step: it holds the block files a cold
+# SF10 Q1 reads (2.6 GB decoded), which the default 1 GB does not
+BLOCK_CACHE_MB = 16 << 10
+
+
+def lineitem_p_ddl() -> str:
+    """TPC-H lineitem partitioned by range of l_shipdate, a partition a
+    year for 1992-1998 and a DEFAULT: the yearly fact partitioning of the
+    Greenplum documentation's "Partitioning Large Tables"."""
+    from greengage_tpu_torch.utils import tpch
+
+    cols = tpch.DDL.split("create table if not exists lineitem (")[1] \
+        .split(") distributed by")[0]
+    years = ", ".join(
+        f"partition y{y} start (date '{y}-01-01') end (date '{y + 1}-01-01')"
+        for y in range(1992, 1999))
+    return (f"create table lineitem_p ({cols}) distributed by (l_orderkey) "
+            f"partition by range (l_shipdate) ({years}, "
+            "default partition other)")
+
+
+def _rows_where(cols: dict, m) -> dict:
+    """The rows ``m`` (a mask or an index order) of a generated table; a
+    column a unit on a pool of threads (numpy's take releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from greengage_tpu_torch.types import Coded
+
+    def take(v):
+        return (Coded(v.vocab, v.codes[m]) if isinstance(v, Coded)
+                else v[m])
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return dict(zip(cols, pool.map(take, cols.values())))
+
+
+def month_zone_blocks(li: dict, order, nseg: int, lo: int, hi: int) -> tuple:
+    """(kept, total) blocks a [lo, hi) shipdate scan of lineitem_p's 1995
+    child keeps, derived in numpy from the load: rows placed by the hash of
+    l_orderkey (the store's placement), each segment's 1995 rows in load
+    (shipdate) order cut into blocks of 65,536 rows, a block kept when its
+    [min, max] meets the range. The DEFAULT child holds no row."""
+    from greengage_tpu_torch.storage import native
+    from greengage_tpu_torch.storage.blockfile import DEFAULT_BLOCK_ROWS
+
+    sd = li["l_shipdate"][order]   # ``order``: the load's row order
+    m95 = (sd >= _days("1995-01-01")) & (sd < _days("1996-01-01"))
+    seg = native.hash_i64(li["l_orderkey"][order][m95].astype(np.int64)) \
+        % np.uint32(nseg)
+    d95 = sd[m95]
+    kept = total = 0
+    for s in range(nseg):
+        d = d95[seg == s]
+        for st in range(0, len(d), DEFAULT_BLOCK_ROWS):
+            blk = d[st: st + DEFAULT_BLOCK_ROWS]
+            total += 1
+            kept += int(blk.max() >= lo and blk.min() < hi)
+    return kept, total
+
+
+def dyn_reference(li: dict) -> dict:
+    """SQL_DYN in numpy: sum(l_extendedprice) (scaled int64) by quarter of
+    the 1995 shipdates."""
+    sd = li["l_shipdate"]
+    m = (sd >= _days("1995-01-01")) & (sd < _days("1996-01-01"))
+    month = (sd[m].astype("datetime64[D]").astype("datetime64[M]")
+             .astype(np.int64) % 12)
+    q = month // 3 + 1
+    ep = li["l_extendedprice"][m].astype(np.int64)
+    return {int(k): int(ep[q == k].sum()) for k in np.unique(q)}
+
+
+def warm_breakdown(torch, db, reps: int, timed) -> dict:
+    """Where a warm month-range Q1's time goes, beside warm Q1s over
+    lineitem_p and lineitem on the same Database: warm medians in turn
+    (ms), the spans of one traced run of each (ms by span name: parse,
+    plan, shapes — the cache invalidation and the pruning decisions —,
+    stage, compile, dispatch, fetch), the card's busy share of one
+    month-range Q1 (torch.profiler), and the host functions that take its
+    time (cProfile over ``reps`` runs, ms a statement: the package's by
+    cumulative time, any by own time)."""
+    import cProfile
+    import os
+    import pstats
+
+    from greengage_tpu_torch.runtime import trace
+
+    stmts = {"q1_month": SQL_Q1_MONTH, "q1_lineitem_p": SQL_Q1_P,
+             "q1_lineitem": SQL_Q1}
+    for q in stmts.values():
+        db.sql(q)
+    times = {k: [] for k in stmts}
+    for _ in range(reps):
+        for k, q in stmts.items():
+            times[k].append(timed(lambda: db.sql(q))[1] * 1e3)
+    spans = {}
+    for k, q in stmts.items():
+        db.sql(q)
+        per: dict = {}
+        for sp in trace.TRACES.last().export():
+            per[sp["name"]] = per.get(sp["name"], 0.0) + sp["dur"]
+        spans[k] = per
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    for _ in range(reps):
+        db.sql(SQL_Q1_MONTH)
+    torch.cuda.synchronize()
+    prof.disable()
+    here = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    for (f, line, fn), (_, ncalls, own, cum, _) in \
+            pstats.Stats(prof).stats.items():
+        where = (os.path.relpath(f, here) if f.startswith(here)
+                 else os.path.basename(f))
+        rows.append({"fn": f"{where}:{line}({fn})", "calls": ncalls / reps,
+                     "cum_ms": cum / reps * 1e3, "own_ms": own / reps * 1e3,
+                     "ours": f.startswith(here)})
+    ours = sorted((r for r in rows if r["ours"]), key=lambda r: -r["cum_ms"])
+    return {"warm_ms_median": {k: statistics.median(v)
+                               for k, v in times.items()},
+            "warm_ms": times, "spans_ms": spans,
+            "device_q1_month": profile_q1(torch,
+                                          lambda: db.sql(SQL_Q1_MONTH)),
+            "host_by_cum": ours[:25],
+            "host_by_own": sorted(rows, key=lambda r: -r["own_ms"])[:15]}
+
+
+def phase_prune(torch, data, nseg: int, reps: int, name: str,
+                smi_line: str, dml_ref: dict) -> tuple:
+    """Partitioned tables, zone maps, a block index, the block cache,
+    ALTER TABLE and expand on the dml phase's directory (SF10, 8
+    segments). lineitem_p (partitioned by year of l_shipdate and a
+    DEFAULT) loaded with load_table in l_shipdate order; Q1 over it (no
+    partition pruned), a month-range Q1 (2 of 8 partitions, zone-map
+    blocks exactly as numpy derives them from the load), Q6 (1994) and a
+    join to a 2,557-day calendar pruning 2 of 8 children at run time, each
+    exact against numpy with one fused launch per Q1; CREATE INDEX on
+    orders (o_custkey) and the orders of one customer; a cold Q1 on
+    lineitem twice (the second from the block cache); a brownout shrinking
+    the cache and freeing card memory; DROP PARTITION of 1992 and Q1
+    again; expand from 8 to 16 segments at SF 0.1 in its own directory.
+    -> (the fused kernel's launches by the cold Q1 over lineitem_p, its
+    job table's _timed_form row, the month-range Q1's)."""
+    import os
+    import shutil
+
+    import greengage_tpu_torch
+    from greengage_tpu_torch.config import Settings
+    from greengage_tpu_torch.ops import fused_agg
+    from greengage_tpu_torch.runtime import overload
+    from greengage_tpu_torch.runtime.faultinject import faults
+    from greengage_tpu_torch.runtime.logger import counters
+    from greengage_tpu_torch.utils import tpch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, DURABLE_DIR)
+    out = {"phase": "prune", "nseg": nseg, "device": name, "card": smi_line}
+    li = data["lineitem"]
+    cutoff = _days("1998-09-02")
+
+    def timed(fn):
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    tables = []
+    fused = fused_agg._segment_reduce_fused
+
+    def keep(table):
+        tables.append(table)
+        return fused(table)
+
+    def one_launch(tag, fn):
+        before = fused_agg.LAUNCHES
+        res, s = timed(fn)
+        if fused_agg.LAUNCHES != before + 1:
+            raise AssertionError(f"{tag} launched the fused kernel "
+                                 f"{fused_agg.LAUNCHES - before} times")
+        return res, s
+
+    db = greengage_tpu_torch.connect(path=path, numsegments=nseg)
+    reg = db.store.blockcache
+    out["cache_budgets_mb"] = {"host": reg.limit_bytes() >> 20,
+                               "card": reg.card_limit_bytes() >> 20}
+    try:
+        # the partitioned fact table, loaded in shipdate order (the
+        # time-ordered nightly load zone maps exist for)
+        t = time.perf_counter()
+        order = np.argsort(li["l_shipdate"])
+        sorted_li = _rows_where(li, order)
+        out["sort_s"] = time.perf_counter() - t
+        db.sql(lineitem_p_ddl())
+        bytes0 = _dir_bytes(path)
+        t = time.perf_counter()
+        db.load_table("lineitem_p", sorted_li)
+        out["write_s"] = time.perf_counter() - t
+        out["bytes_on_disk"] = _dir_bytes(path) - bytes0
+        del sorted_li
+        db.sql("analyze lineitem_p")
+        out["children_rows"] = {
+            p.name: sum(db.store.segment_rowcounts(f"lineitem_p#{p.name}"))
+            for p in db.catalog.get("lineitem_p").partitions}
+
+        # Q1 over every partition: the main path, launch counts set to 0
+        # just before and read just after
+        fused_agg._segment_reduce_fused = keep
+        try:
+            fused_agg.LAUNCHES = 0
+            res, cold_s = timed(lambda: db.sql(SQL_Q1_P))
+            launches = fused_agg.LAUNCHES
+        finally:
+            fused_agg._segment_reduce_fused = fused
+        if launches != 1:
+            raise AssertionError(f"Q1 over lineitem_p launched the fused "
+                                 f"kernel {launches} times")
+        check_q1(res, q1_reference(li, cutoff))
+        if res.stats["partitions"] != {"lineitem_p": 8}:
+            raise AssertionError(f"Q1 pruned partitions: "
+                                 f"{res.stats['partitions']}")
+        warm, warm_s = one_launch("a warm Q1 over lineitem_p",
+                                  lambda: db.sql(SQL_Q1_P))
+        check_q1(warm, q1_reference(li, cutoff))
+        out["q1"] = {"cold_s": cold_s, "warm_s": warm_s,
+                     "cold_stage_ms": res.stats["stage_ms"],
+                     "partitions": res.stats["partitions"],
+                     "zone_prune": res.stats["zone_prune"]}
+        form_q1 = _timed_form(torch, tables[0], "Q1 over lineitem_p's job "
+                              "table (8 of 8 children)", 20)
+        tables.clear()
+
+        # the month-range Q1: 2 of 8 partitions, a few blocks
+        lo, hi = _days(PRUNE_MONTH[0]), _days(PRUNE_MONTH[1])
+        sd = li["l_shipdate"]
+        ref_m = q1_reference(li, cutoff, mask=(sd >= lo) & (sd < hi))
+        fused_agg._segment_reduce_fused = keep
+        try:
+            res_m, m_cold_s = one_launch("the month-range Q1",
+                                         lambda: db.sql(SQL_Q1_MONTH))
+        finally:
+            fused_agg._segment_reduce_fused = fused
+        check_q1(res_m, ref_m)
+        want_blocks = month_zone_blocks(li, order, nseg, lo, hi)
+        got_blocks = res_m.stats["zone_prune"].get("lineitem_p")
+        if res_m.stats["partitions"] != {"lineitem_p": 2}:
+            raise AssertionError(f"month Q1 kept partitions "
+                                 f"{res_m.stats['partitions']}, not 2 of 8")
+        if got_blocks != want_blocks or not got_blocks[0] < got_blocks[1]:
+            raise AssertionError(f"month Q1 kept blocks {got_blocks}, "
+                                 f"numpy derives {want_blocks}")
+        warm_m, m_warm_s = one_launch("a warm month-range Q1",
+                                      lambda: db.sql(SQL_Q1_MONTH))
+        check_q1(warm_m, ref_m)
+        out["q1_month"] = {"cold_s": m_cold_s, "warm_s": m_warm_s,
+                           "cold_stage_ms": res_m.stats["stage_ms"],
+                           "partitions": res_m.stats["partitions"],
+                           "zone_prune": got_blocks,
+                           "numpy_blocks": want_blocks,
+                           "staged_rows_per_segment":
+                               int(tables[0].gid.shape[1])}
+        form_m = _timed_form(torch, tables[0], "the month-range Q1's "
+                             "pruned job table (2 of 8 children)", 20)
+        tables.clear()
+        out["warm_breakdown"] = warm_breakdown(torch, db, reps, timed)
+        for form in (form_q1, form_m):
+            if form["max_abs_err"] != 0:
+                raise AssertionError(f"{form['case']}: the kernel is not "
+                                     "bit-identical to its plain version")
+
+        # Q6 (1994): 2 of 8 partitions
+        res6, q6_s = timed(lambda: db.sql(SQL_Q6_P))
+        _check_q6(res6, q6_reference(li), "Q6 over lineitem_p")
+        if res6.stats["partitions"] != {"lineitem_p": 2}:
+            raise AssertionError(f"Q6 kept {res6.stats['partitions']}")
+        out["q6"] = {"s": q6_s, "partitions": res6.stats["partitions"],
+                     "zone_prune": res6.stats["zone_prune"]}
+
+        # join-driven elimination through a date dimension
+        days = np.arange(_days("1992-01-01"), _days("1999-01-01"),
+                         dtype=np.int32)
+        dt = days.astype("datetime64[D]")
+        year = dt.astype("datetime64[Y]").astype(np.int64) + 1970
+        month = dt.astype("datetime64[M]").astype(np.int64) % 12
+        db.sql("create table calendar (c_date date, c_year int, "
+               "c_quarter int) distributed replicated")
+        db.load_table("calendar", {"c_date": days,
+                                   "c_year": year.astype(np.int32),
+                                   "c_quarter": (month // 3 + 1)
+                                   .astype(np.int32)})
+        db.sql("analyze calendar")
+        resd, dyn_s = timed(lambda: db.sql(SQL_DYN))
+        got = {int(q): int(v) for q, v in zip(
+            resd.raw[resd._order[0]], resd.raw[resd._order[1]])}
+        if got != dyn_reference(li):
+            raise AssertionError(f"dynamic-prune join {got} != numpy")
+        if resd.stats["dynamic_prune"] != {"lineitem_p": (2, 8)}:
+            raise AssertionError(f"dynamic prune kept "
+                                 f"{resd.stats['dynamic_prune']}, not 2/8")
+        out["dynamic"] = {"s": dyn_s, "calendar_rows": len(days),
+                          "dynamic_prune": resd.stats["dynamic_prune"]}
+
+        # a block index on unclustered orders: one customer's orders
+        orders = data["orders"]
+        t = time.perf_counter()
+        db.sql("create index orders_custkey on orders (o_custkey)")
+        out["index_build_s"] = time.perf_counter() - t
+        cust = int(orders["o_custkey"][123_456])
+        q_cust = ("select o_orderkey, o_totalprice from orders where "
+                  f"o_custkey = {cust} order by o_orderkey")
+        resi, idx_s = timed(lambda: db.sql(q_cust))
+        m = orders["o_custkey"] == cust
+        want = sorted(zip(orders["o_orderkey"][m].tolist(),
+                          orders["o_totalprice"][m].tolist()))
+        got = list(zip(resi.raw[resi._order[0]].tolist(),
+                       resi.raw[resi._order[1]].tolist()))
+        if got != want:
+            raise AssertionError(f"customer {cust}'s orders {got} != "
+                                 f"{want}")
+        kept, total = resi.stats["zone_prune"]["orders"]
+        if not kept < total or not resi.stats["index_hits"].get("orders"):
+            raise AssertionError(f"the index kept {kept}/{total} blocks, "
+                                 f"hits {resi.stats['index_hits']}")
+        out["index"] = {"s": idx_s, "customer": cust, "orders": len(want),
+                        "zone_prune": (kept, total),
+                        "index_hits": resi.stats["index_hits"]}
+
+        # the block cache: a cold Q1 on lineitem twice, the second from the
+        # blocks member, at a host budget that holds the columns Q1 reads
+        # (at the default 1 GB a scan of them evicts its own blocks)
+        db.sql(f"set scan_cache_limit_mb = {BLOCK_CACHE_MB}")
+        runs = []
+        for i in range(2):
+            db.executor._stage_cache.clear()
+            base = counters.snapshot()
+            resc, s = one_launch("a cold Q1 on lineitem",
+                                 lambda: db.sql(SQL_Q1))
+            check_q1(resc, dml_ref)
+            io = counters.since(base, "scan_")
+            runs.append({"s": s, "stage_ms": resc.stats["stage_ms"],
+                         "scan_io": io})
+        if not runs[1]["scan_io"].get("scan_cache_hit", 0) \
+                or runs[1]["scan_io"].get("scan_files_read", 0):
+            raise AssertionError(f"the second cold Q1 did not read from the "
+                                 f"block cache: {runs[1]['scan_io']}")
+        out["block_cache"] = {"scan_cache_limit_mb": BLOCK_CACHE_MB,
+                              "cold_runs": runs, "registry": reg.stats()}
+
+        # a brownout shrinks both budgets: evicted on entry, card bytes
+        # freed. The brownout's factor is set to its floor, 0.05 (an
+        # operator's setting under a live incident): at SF10 the card's
+        # budget then falls below the staged lineitem columns, so entry
+        # must evict staged tensors on the card
+        held = reg.card_total_bytes
+        db.sql("set brownout_cache_factor = 0.05")
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated()
+        try:
+            faults.inject("brownout_force", "skip", occurrences=-1)
+            overload.CONTROLLER.evaluate(db.settings, force=True)
+            db.sql("select 1")   # the statement's tick applies the entry
+            torch.cuda.synchronize()
+            alloc1 = torch.cuda.memory_allocated()
+            limit, host_limit = reg.card_limit_bytes(), reg.limit_bytes()
+            after = reg.card_total_bytes
+            host_after = reg.total_bytes - after
+        finally:
+            faults.reset()
+            overload.CONTROLLER.reset()
+        if not after <= limit or not host_after <= host_limit \
+                or (limit < held and not alloc1 < alloc0):
+            raise AssertionError(f"brownout: card entries {after} of "
+                                 f"{limit} (held {held}), host {host_after} "
+                                 f"of {host_limit}, allocated {alloc0} -> "
+                                 f"{alloc1}")
+        out["brownout"] = {"held_card_bytes": held, "card_limit_bytes": limit,
+                           "card_after_bytes": after,
+                           "host_limit_bytes": host_limit,
+                           "host_after_bytes": host_after,
+                           "allocated_before": alloc0,
+                           "allocated_after": alloc1}
+        for k in ("scan_cache_limit_mb", "brownout_cache_factor"):
+            db.sql(f"set {k} = {getattr(Settings(), k)}")
+
+        # ALTER TABLE ... DROP PARTITION: 1992's rows go
+        db.sql("alter table lineitem_p drop partition y1992")
+        resa, drop_s = one_launch("Q1 after DROP PARTITION",
+                                  lambda: db.sql(SQL_Q1_P))
+        check_q1(resa, q1_reference(li, cutoff,
+                                    mask=(sd <= cutoff)
+                                    & (sd >= _days("1993-01-01"))))
+        out["drop_partition"] = {"s": drop_s,
+                                 "partitions": resa.stats["partitions"]}
+        db.close()
+        del db
+    except BaseException:
+        db.close()
+        raise
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    out["directory_removed"] = not os.path.exists(path)
+    torch.cuda.empty_cache()
+
+    # expand, cut to SF 0.1 in a directory of its own
+    epath = os.path.join(here, EXPAND_DIR)
+    shutil.rmtree(epath, ignore_errors=True)
+    try:
+        small = tpch.generate(EXPAND_SF)
+        db = greengage_tpu_torch.connect(path=epath, numsegments=nseg)
+        _load_tpch(db, small, tables=("lineitem",))
+        moved, exp_s = timed(lambda: db.expand(2 * nseg))
+        counts = db.store.segment_rowcounts("lineitem")
+        rese = db.sql(SQL_Q1)
+        check_q1(rese, q1_reference(small["lineitem"], cutoff))
+        if len(counts) != 2 * nseg or rese.stats["segments"] != 2 * nseg:
+            raise AssertionError(f"expand: {len(counts)} segments")
+        db.close()
+        out["expand"] = {"from": nseg, "to": 2 * nseg, "s": exp_s,
+                         "moved": moved, "rows_per_segment": counts,
+                         "reduced": [f"expand at SF {EXPAND_SF} (lineitem "
+                                     f"only, {sum(counts)} rows), not SF10"]}
+    finally:
+        shutil.rmtree(epath, ignore_errors=True)
+    out.update(fused_dense_agg_launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               ok=True)
+    emit(out)
+    return launches, form_q1, form_m
 
 
 def main() -> int:
@@ -3826,17 +4307,20 @@ def main() -> int:
     durable_launches, durable_form = phase_durable(torch, data, args.nseg,
                                                    args.reps, name)
     torch.cuda.empty_cache()
-    dml_launches, dml_form = phase_dml(torch, data, args.nseg, args.reps,
-                                       name, smi_line)
+    dml_launches, dml_form, dml_ref = phase_dml(
+        torch, data, args.nseg, args.reps, name, smi_line)
+    torch.cuda.empty_cache()
+    prune_launches, prune_form, month_form = phase_prune(
+        torch, data, args.nseg, args.reps, name, smi_line, dml_ref)
     del data
     torch.cuda.empty_cache()
-    # SQL Q1 after DELETE, UPDATE, INSERT SELECT and COPY in a directory
-    # is this slice's main path: the kernel's numbers are those of the job
-    # table its first run handed the kernel; the durable Q1's table,
-    # EXPLAIN ANALYZE's Q1 table, the wire's, the spilled pass's, the
-    # synthetic Q1 table, the ROLLUP's two tables (summed per statement)
-    # and the tpch22 statements' tables stay beside them, and every
-    # earlier path is read as it was driven
+    # SQL Q1 over the partitioned lineitem_p in a directory is this
+    # slice's main path: the kernel's numbers are those of the job table
+    # its cold run handed the kernel; the month-range Q1's pruned table,
+    # the DML Q1's, the durable Q1's table, EXPLAIN ANALYZE's Q1 table, the
+    # wire's, the spilled pass's, the synthetic Q1 table, the ROLLUP's two
+    # tables (summed per statement) and the tpch22 statements' tables stay
+    # beside them, and every earlier path is read as it was driven
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     kernel["q1_table"] = {k: kernel[k] for k in keys}
     kernel["spill_pass_table"] = {k: pass_form[k] for k in keys}
@@ -3850,19 +4334,23 @@ def main() -> int:
                              launches=f["launches_cold"])
         for f in tpch22_forms}
     kernel["durable_q1_table"] = {k: durable_form[k] for k in keys}
-    kernel.update({k: dml_form[k] for k in keys})
+    kernel["dml_q1_table"] = {k: dml_form[k] for k in keys}
+    kernel["prune_month_q1_table"] = {k: month_form[k] for k in keys}
+    kernel.update({k: prune_form[k] for k in keys})
     kernel["max_abs_err"] = max(
         e for e in [kernel["max_abs_err"], pass_form["max_abs_err"],
                     wire_form["max_abs_err"], explain_form["max_abs_err"],
-                    durable_form["max_abs_err"], dml_form["max_abs_err"]]
+                    durable_form["max_abs_err"], dml_form["max_abs_err"],
+                    prune_form["max_abs_err"], month_form["max_abs_err"]]
         + [f["max_abs_err"] for f in forms + tpch22_forms]
         if e is not None)
-    kernel["measured_at"] = ("the job table SQL Q1 hands the kernel after "
-                             "DELETE, UPDATE, INSERT SELECT and COPY in a "
-                             "directory")
-    kernel["launches"] = dml_launches
+    kernel["measured_at"] = ("the job table SQL Q1 over the partitioned "
+                             "lineitem_p (8 of 8 children, staged from "
+                             "block files) hands the kernel")
+    kernel["launches"] = prune_launches
     kernel["launches_per_sql_rollup"] = rollup_launches
-    kernel["launches_by_path"] = {"sql_dml": dml_launches,
+    kernel["launches_by_path"] = {"sql_prune": prune_launches,
+                                  "sql_dml": dml_launches,
                                   "sql_durable": durable_launches,
                                   "tpch22_check": check_launches,
                                   "tpch22_sf10": tpch22_launches,

@@ -52,6 +52,12 @@ class Settings:
     # staging read pool (exec/staging.py): 0 = auto (min(8, cpu count)),
     # 1 = read on the statement's thread
     scan_threads: int = 0
+    # one byte budget for every block cache held in host memory (decoded
+    # blocks, footers, block indexes, deletion masks, staged inputs of a
+    # CPU executor) — the shared_buffers analog, LRU-evicted across all of
+    # them (storage/blockcache.py); the staged inputs on a card keep half
+    # the card's memory as theirs
+    scan_cache_limit_mb: int = 1024
     # tiered spill workfile (exec/workfile.py): captured passes stay in
     # host RAM up to spill_host_limit_mb per statement, then the coldest
     # demote to compressed files under spill_dir (empty = a directory of
@@ -148,8 +154,8 @@ class Settings:
     # allocated bytes at brownout_enter_pct of its memory (or
     # brownout_oom_events OOMs within brownout_window_s) enter it; batch
     # serving stops and the admission ceiling scales by
-    # brownout_vmem_factor (brownout_cache_factor scales the block cache,
-    # which comes with durable storage, ROADMAP Queue 1 item 1a). It
+    # brownout_vmem_factor (brownout_cache_factor scales the block
+    # cache's budget, storage/blockcache.py). It
     # clears once every signal stays below brownout_exit_pct for
     # brownout_exit_s
     brownout_enabled: bool = True

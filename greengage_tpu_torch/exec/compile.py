@@ -120,14 +120,83 @@ def _lag_lead_lookup(fname, param, rn0, n_total, lookup, live):
 
 
 @dataclass
+class ScanSpec:
+    """What a plan's scans of one table ask staging for: the JAX compiler's
+    per-table scan state (``scan_cols``, ``scan_direct``, ``scan_count``,
+    ``scan_prune``, ``scan_parts``, ``scan_dyn``) and the decisions its
+    input spec ``(table, cols, cap, direct, prune, child_parts, dyn)``
+    makes from it. ``directs`` holds every scan's direct-dispatch
+    segment; ``direct`` is the pin every scan agrees on (None when any
+    differs); ``prune`` applies only to a table scanned once (a second
+    scan would need the pruned-away rows); ``parts`` is the UNION of the
+    child tables the scans of a partitioned parent keep; ``dyn`` the
+    join-driven partition selector's source, dropped when two scans name
+    different ones."""
+
+    cols: set = field(default_factory=set)
+    directs: list = field(default_factory=list)
+    count: int = 0
+    prune: tuple = ()
+    parts: tuple | None = None
+    dyn: object = "unset"
+    index_hits: tuple = ()
+
+    @property
+    def direct(self):
+        d = self.directs
+        return d[0] if d and all(x == d[0] for x in d) else None
+
+    @property
+    def staged_prune(self) -> tuple | None:
+        return (self.prune or None) if self.count == 1 else None
+
+    @property
+    def staged_dyn(self):
+        return self.dyn if isinstance(self.dyn, tuple) else None
+
+
+def collect_scans(plan: Plan, out: dict | None = None) -> dict:
+    """table -> ScanSpec of every Scan in ``plan`` (the JAX compiler's
+    _collect_scans: two scans of one parent stage the union of their
+    parts; the last scan's pushed predicates stand, used only when it is
+    the one scan)."""
+    out = {} if out is None else out
+    if isinstance(plan, Scan):
+        sp = out.setdefault(plan.table, ScanSpec())
+        sp.cols.update(c.name for c in plan.cols)
+        sp.directs.append(plan.direct_seg)
+        sp.count += 1
+        sp.prune = tuple(plan.prune_preds or ())
+        if plan.parts is not None:
+            sp.parts = (tuple(dict.fromkeys((sp.parts or ()) + plan.parts))
+                        if sp.parts is not None else plan.parts)
+        dyn = getattr(plan, "dyn_prune", None)
+        sp.dyn = dyn if sp.dyn in ("unset", dyn) else None
+        sp.index_hits = tuple(plan.index_hits or ())
+    for c in plan.children:
+        collect_scans(c, out)
+    return out
+
+
+@dataclass
 class TableShape:
     """What compiling a Scan reads of its table: the staged row capacity
     and the JAX compiler's capacity for the same scan (``ref_capacity``,
-    0 = the staged one). Dictionaries come from the compiler's resolver."""
+    0 = the staged one). Dictionaries come from the compiler's resolver.
+    Staging's decisions ride along (exec/executor.py table_shapes): the
+    direct-dispatch segment read alone, the resolved zone-map predicates,
+    the child tables of a partitioned parent after the join-driven
+    selector, and the (kept, total) blocks and children they keep."""
 
     name: str
     capacity: int
     ref_capacity: int = 0
+    direct: int | None = None
+    prune: tuple | None = None
+    parts: tuple | None = None
+    zone: tuple | None = None
+    dyn: tuple | None = None
+    index: tuple = ()
 
 
 @dataclass
@@ -613,9 +682,8 @@ class Compiler:
         return run
 
     def _c_scan(self, plan: Scan):
-        if plan.parts is not None:
-            raise NotImplementedError(
-                "partitioned tables: ROADMAP Queue 1 item 1a-ii")
+        # a partitioned parent is staged as one table: its kept children's
+        # rows, segment by segment (exec/executor.py)
         table = plan.table
         id_by_store = [(c.id, c.name) for c in plan.cols]
 

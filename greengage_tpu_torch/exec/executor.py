@@ -97,15 +97,16 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from greengage_tpu_torch import expr as E
 from greengage_tpu_torch import types as T
+from greengage_tpu_torch.catalog import PolicyKind
 from greengage_tpu_torch.exec import staging
 from greengage_tpu_torch.exec.compile import (
     VALID_PREFIX, CompileResult, Compiler, ProgramOutput, TableData,
-    TableShape, _pow2,
+    TableShape, _pow2, collect_scans,
 )
 from greengage_tpu_torch.ops import sort as sort_ops
 from greengage_tpu_torch.ops.batch import Batch
-from greengage_tpu_torch.planner.logical import Plan, Scan
 from greengage_tpu_torch.runtime import interrupt, lockdebug, memaccount
 from greengage_tpu_torch.runtime import overload as _overload
 from greengage_tpu_torch.runtime import trace as _trace
@@ -114,6 +115,7 @@ from greengage_tpu_torch.runtime.logger import (DEFAULT_BUCKETS_MB, counters,
                                                 histograms)
 from greengage_tpu_torch.runtime.resgroup import current_memory_limit_mb
 from greengage_tpu_torch.runtime.runaway import TRACKER
+from greengage_tpu_torch.storage.blockcache import MISS
 
 
 class QueryError(RuntimeError):
@@ -507,16 +509,9 @@ def run_tiers(plan, tables: dict, layout, settings,
 # the session's executor: admission, staging from the store, spill, hints
 # ---------------------------------------------------------------------------
 
-def _scans(plan: Plan, out: dict) -> dict:
-    """table -> (the storage columns its Scans read (every scan's union),
-    the direct-dispatch segment of each scan)."""
-    if isinstance(plan, Scan):
-        names, directs = out.setdefault(plan.table, (set(), []))
-        names.update(c.name for c in plan.cols)
-        directs.append(plan.direct_seg)
-    for c in plan.children:
-        _scans(c, out)
-    return out
+# the block cache's counters a statement's staging moves: its scan I/O
+SCAN_COUNTERS = ("scan_files_read", "scan_bytes_decoded", "scan_cache_hit",
+                 "scan_cache_miss", "scan_cache_evict")
 
 
 class Executor:
@@ -526,9 +521,18 @@ class Executor:
         self.layout = layout
         self.nseg = layout.nseg
         self.settings = settings
-        # (table, column, capacity, version) -> staged [nseg, cap] tensor;
-        # (table, "@present", capacity, version) -> the live-slot mask
-        self._stage_cache: dict = {}
+        # staged device inputs live in the store's byte-accounted LRU
+        # registry (storage/blockcache.py), evicted by recency against the
+        # card's budget (scan_cache_limit_mb on the CPU): (table, column,
+        # capacity, version, direct segment, prune predicates, child
+        # tables) -> staged [nseg, cap] tensor; column "@present" -> the
+        # live-slot mask. A pruned scan is staged under its own key beside
+        # the unpruned one
+        self._stage_cache = store.blockcache.cache("stage")
+        # join-driven partition selection, the registry's ``dyn`` member
+        # tagged with its manifest version: (table, child tables, source,
+        # version) -> the kept children
+        self._dyn_prune_cache = store.blockcache.cache("dyn")
         # cap hints: plan-cache key -> {plan-node ordinal: capacity}, the
         # exact counts of the statement's last run (pow2-bucketed), LRU
         # within plan_cache_size
@@ -576,9 +580,12 @@ class Executor:
             self._spill_dir = None
 
     def invalidate_table(self, table: str) -> None:
+        """Drop the staged inputs of ``table`` (a partition child names its
+        parent): DROP TABLE, DROP PARTITION, CREATE INDEX and the spill
+        release."""
+        base = table.split("#", 1)[0]
         with self._cache_mu:
-            for k in [k for k in self._stage_cache if k[0] == table]:
-                del self._stage_cache[k]
+            self._stage_cache.drop(lambda k: k[0].split("#", 1)[0] == base)
 
     def forget(self, cache_key) -> None:
         """Drop a statement's cap hints and its cached programs (its bound
@@ -630,11 +637,14 @@ class Executor:
         overrides = scan_cap_override or {}
         ranges = row_ranges or {}
         aux = aux_tables or {}
-        shapes = self.table_shapes(plan, snapshot, overrides, aux)
+        # staged inputs and store cache entries of other manifest versions
+        # are unreachable: free them (a staged CUDA tensor goes back to the
+        # allocator once no statement holds it)
+        with _trace.span("shapes", cat="stage"):
+            self.store.blockcache.invalidate_versions(version)
+            shapes = self.table_shapes(plan, snapshot, overrides, aux,
+                                       (consts or {}).get("@params@"))
         with self._cache_mu:
-            # staged copies of older versions are unreachable: free them
-            for k in [k for k in self._stage_cache if k[3] != version]:
-                del self._stage_cache[k]
             hints = dict(self._cap_hints.get(cache_key) or {})
             if hints:
                 self._cap_hints.move_to_end(cache_key)
@@ -702,6 +712,8 @@ class Executor:
                 return comp.program(tables)
             return self._measure(comp, prog, tables, consts, fb_key)
 
+        io0 = {k: counters.get(k) for k in SCAN_COUNTERS}
+
         def stage(comp):
             t = time.perf_counter()
             with _trace.span("stage", cat="stage", tables=len(shapes)):
@@ -747,6 +759,9 @@ class Executor:
         res.wall_ms = (time.perf_counter() - t0) * 1e3
         res.stats["stage_ms"] = stage_s[0] * 1e3
         res.stats["wall_ms"] = res.wall_ms
+        res.stats.update(self.scan_stats(shapes))
+        res.stats["scan_io"] = {k: counters.get(k) - io0[k]
+                                for k in SCAN_COUNTERS}
         res.stats["mem"] = self._mem_stats(
             res.stats["mem"]["est_bytes"], last["admit_bytes"],
             last["measured"], last["prog"])
@@ -771,7 +786,8 @@ class Executor:
         """Compile ``plan`` at tier 0 without staging or running it: the
         spill paths size their passes from its ``est_bytes``."""
         shapes = self.table_shapes(plan, self.store.manifest.snapshot(),
-                                   scan_cap_override or {}, aux_tables or {})
+                                   scan_cap_override or {}, aux_tables or {},
+                                   (consts or {}).get("@params@"))
         return Compiler(self.layout, shapes, self.settings, consts,
                         self._dictionary, no_direct=no_direct).compile(plan)
 
@@ -833,6 +849,10 @@ class Executor:
         snapshot = self.store.manifest.snapshot()
         with self._cache_mu:
             hints = dict(self._cap_hints.get(cache_key) or {})
+        # parameter-valued prune predicates are DROPPED (no parameter
+        # vector): pruning by one member's values would starve its
+        # batch-mates of blocks their rows live in; value-pinned ones are
+        # every member's and stay
         shapes = self.table_shapes(plan, snapshot)
         # members padded to the bucket with the last one's values
         padded = list(pvec_rows) + [pvec_rows[-1]] * (bucket - width)
@@ -879,10 +899,7 @@ class Executor:
                 f"per segment at width {bucket}, above the "
                 f"{limit >> 20} MB ceiling")
         comp.batch_params = bconsts["@params@rt"]
-        # staging as for one statement; the port's in-memory store prunes
-        # no blocks by value, so no member's parameters can starve
-        # another's rows (the JAX package drops its parameter-valued
-        # prune predicates here)
+        # staging as for one statement, over the shapes above
         with _trace.span("stage", cat="stage", tables=len(shapes),
                          batch_width=width, batch_bucket=bucket), \
                 memaccount.device_work():
@@ -1131,7 +1148,7 @@ class Executor:
         """Drop the cached whole columns of the tables a spilling statement
         reads, and on a card hand the allocator's free blocks back, so the
         passes run without them."""
-        for table in _scans(plan, {}):
+        for table in collect_scans(plan):
             self.invalidate_table(table)
         if self.layout.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -1199,12 +1216,13 @@ class Executor:
     # ---- staging -------------------------------------------------------
     def staged_columns(self, plan, snapshot, aux: dict | None = None) -> dict:
         """table -> the staged column names a plan's scans read: storage
-        columns and the "@v:" NULL mask of each that has NULLs."""
+        columns and the "@v:" NULL mask of each that has NULLs (in any
+        child of a partitioned parent)."""
         aux = aux or {}
         out = {}
-        for table, (names, _d) in sorted(_scans(plan, {}).items()):
+        for table, spec in sorted(collect_scans(plan).items()):
             want = []
-            for c in sorted(names):
+            for c in sorted(spec.cols):
                 want.append(c)
                 if table in aux:
                     if aux[table][1].get(c) is not None:
@@ -1214,42 +1232,164 @@ class Executor:
             out[table] = want
         return out
 
+    @staticmethod
+    def _resolve_prune(prune, pvec):
+        """Substitute hoisted-parameter operands in pushed zone-map
+        predicates with the statement's CURRENT values
+        (sql/paramize.resolve_param_value): pruning stays value-exact
+        while the bound plan stays value-generic. Without a parameter
+        vector (a batch) such a predicate is dropped."""
+        if not prune or not any(isinstance(v, E.Expr) for _, _, v in prune):
+            return prune
+        from greengage_tpu_torch.sql.paramize import resolve_param_value
+
+        out = []
+        for col, op, v in prune:
+            if isinstance(v, E.Expr):
+                if pvec is None:
+                    continue   # no vector bound: skip only this predicate
+                val = resolve_param_value(v, pvec)
+                v = (float(val) if isinstance(val, (float, np.floating))
+                     else int(val))
+            out.append((col, op, v))
+        return tuple(out)
+
     def table_shapes(self, plan, snapshot, overrides: dict | None = None,
-                     aux: dict | None = None) -> dict:
-        """table -> TableShape of every scanned table. The staged capacity
-        is the largest segment's visible rows (a spill chunk caps it); the
-        reference capacity is the JAX compiler's: that count's power of
-        two (of the pinned segment's under a consistent direct dispatch),
-        the chunk exactly, or an aux table's even split."""
+                     aux: dict | None = None, pvec=None) -> dict:
+        """table -> TableShape of every scanned table, with staging's
+        decisions: the direct-dispatch segment (read alone, as the JAX
+        executor reads it), the zone-map predicates (hoisted values
+        resolved from ``pvec``), and a partitioned parent's children after
+        the join-driven selector (_dyn_pruned_parts). The staged capacity
+        is the largest segment's rows as the read returns them (visible
+        rows of the kept children, kept blocks; a spill chunk caps it);
+        the reference capacity is the JAX compiler's: the power of two of
+        the manifest's rows of the statically kept children (of the pinned
+        segment under a direct dispatch), the chunk exactly, or an aux
+        table's even split."""
         overrides, aux = overrides or {}, aux or {}
         out = {}
-        for table, (_names, directs) in _scans(plan, {}).items():
+        for table, spec in collect_scans(plan).items():
             if table in aux:
                 cols0 = aux[table][0]
                 n = len(next(iter(cols0.values()))) if cols0 else 0
                 cap = max(-(-max(n, 1) // self.nseg), 1)
                 out[table] = TableShape(table, cap, cap)
                 continue
+            ds = spec.direct
+            if ds is not None and not 0 <= ds < self.nseg:
+                ds = None
+            prune = self._resolve_prune(spec.staged_prune, pvec) or None
+            parts, dyn_stat = spec.parts, None
+            dyn = spec.staged_dyn
+            if parts is not None and dyn is not None:
+                dyn = (dyn[0], self._resolve_prune(dyn[1], pvec) or (),
+                       dyn[2])
+                parts, dyn_stat = self._dyn_pruned_parts(table, parts, dyn,
+                                                         snapshot)
             # the reference capacity counts the manifest's rows, deleted
-            # ones too, as the JAX compiler does; the staged one the rows
-            # a scan reads (a deletion bitmap's rows are dropped)
-            counts = self.store.segment_rowcounts(table, snapshot)
-            live = self.store.live_rowcounts(table, snapshot)
+            # ones too, of the statically kept children, as the JAX
+            # compiler does; the staged one the rows the reads return
+            counts = self.store.segment_rowcounts(table, snapshot,
+                                                  spec.parts)
+            live = self.store.pruned_rowcounts(table, snapshot, prune, parts)
+            zone = None
+            if prune:
+                kept = total = 0
+                for name in (parts if parts is not None else (table,)):
+                    for seg in ([ds] if ds is not None
+                                else range(self.nseg)):
+                        plan_s = self.store.prune_plan(name, seg, snapshot,
+                                                       prune)
+                        if plan_s is not None:
+                            kept += plan_s[1]
+                            total += plan_s[2]
+                zone = (kept, total) if total else None
             chunk = overrides.get(table)
             if chunk is not None:
                 counts = [min(c, chunk) for c in counts]
                 live = [min(c, chunk) for c in live]
-            cap = max(max(live, default=0), 1)
-            ds = directs[0] if all(d == directs[0] for d in directs) \
-                else None
+            if ds is not None:
+                cap = max(live[ds], 1)
+            else:
+                cap = max(max(live, default=0), 1)
             if chunk is not None:
                 ref = max(max(counts, default=0), 1)
-            elif ds is not None and 0 <= ds < len(counts):
+            elif ds is not None:
                 ref = _pow2(max(counts[ds], 1))
             else:
                 ref = _pow2(max(max(counts, default=0), 1))
-            out[table] = TableShape(table, cap, ref)
+            out[table] = TableShape(table, cap, ref, direct=ds, prune=prune,
+                                    parts=parts, zone=zone, dyn=dyn_stat,
+                                    index=spec.index_hits if zone else ())
         return out
+
+    @staticmethod
+    def scan_stats(shapes: dict) -> dict:
+        """The statement's pruning stats, as the JAX executor reports
+        them: ``partitions`` (children staged per partitioned parent),
+        ``zone_prune`` ((kept, total) blocks per pruned table),
+        ``dynamic_prune`` ((kept, total) children after the join-driven
+        selector) and ``index_hits`` (the block indexes a pruned read
+        probed, per table)."""
+        out = {"partitions": {}, "zone_prune": {}, "dynamic_prune": {},
+               "index_hits": {}}
+        for t, sh in shapes.items():
+            if sh.parts is not None:
+                out["partitions"][t] = len(sh.parts)
+            if sh.zone is not None:
+                out["zone_prune"][t] = sh.zone
+            if sh.dyn is not None:
+                out["dynamic_prune"][t] = sh.dyn
+            if sh.index:
+                out["index_hits"][t] = len(sh.index)
+        return out
+
+    def _dyn_pruned_parts(self, table, child_parts, dyn, snapshot):
+        """-> (the child partitions surviving the build-side key-value
+        probe, (kept, total)): the execution-time PartitionSelector
+        (nodePartitionSelector.c). The build table's pushed filter runs on
+        the host over its rows; a child survives when a surviving key can
+        land in it. Cached per manifest version; on any irregularity every
+        child is kept (a missed prune only costs time)."""
+        version = snapshot.get("version", 0)
+        ck = (table, child_parts, dyn, version)
+        hit = self._dyn_prune_cache.get(ck)
+        if hit is not None:
+            return hit, (len(hit), len(child_parts))
+        dim_table, preds, key_col = dyn
+        try:
+            schema = self.catalog.get(table)
+            dim_schema = self.catalog.get(dim_table)
+            need = {key_col} | {c for c, _, _ in preds}
+            segs = ([0] if dim_schema.policy.kind is PolicyKind.REPLICATED
+                    else range(dim_schema.policy.numsegments))
+            vals_parts = []
+            for seg in segs:
+                c, v, n = self.store.read_segment(dim_table, seg,
+                                                  sorted(need), snapshot)
+                m = np.ones(n, dtype=bool)
+                for col, op, val in preds:
+                    arr = c[col]
+                    cv = v.get(col)
+                    if cv is not None:
+                        m &= np.asarray(cv, bool)
+                    m &= {"=": arr == val, "<": arr < val, "<=": arr <= val,
+                          ">": arr > val, ">=": arr >= val}[op]
+                kv = v.get(key_col)
+                if kv is not None:
+                    m &= np.asarray(kv, bool)   # NULL keys never join
+                vals_parts.append(c[key_col][m])
+            values = (np.unique(np.concatenate(vals_parts)) if vals_parts
+                      else np.empty(0))
+            keep_idx = set(schema.partitions_for_values(values))
+            name_keep = {schema.partitions[i].storage_name(table)
+                         for i in keep_idx}
+            kept = tuple(p for p in child_parts if p in name_keep)
+        except Exception:
+            return child_parts, None   # never fail the query for a prune
+        self._dyn_prune_cache.put(ck, kept, version=version)
+        return kept, (len(kept), len(child_parts))
 
     def _stage(self, plan, snapshot, shapes, ranges, aux,
                prefetcher) -> dict[str, TableData]:
@@ -1271,8 +1411,12 @@ class Executor:
         """One table's staged columns: a whole table from the stage cache
         (a cold one staged once, under the cache lock, however many
         statements want it at once), or a spill pass's range or an aux
-        table staged apart from it."""
+        table staged apart from it. The cache's entries are the registry's
+        (LRU within the card's budget): this statement keeps the tensors
+        it found or staged even when a later insert evicts them."""
         cap = shape.capacity
+        how = dict(parts=shape.parts, prune=shape.prune,
+                   direct=shape.direct)
         if table in aux:
             t = self._upload(self._aux_buffers(want, cap, aux[table]), cap)
             memaccount.charge("staging", _nbytes(t.values()), item=table)
@@ -1281,35 +1425,48 @@ class Executor:
             bufs = (prefetcher.take(table, rng)
                     if prefetcher is not None else None)
             if bufs is None:
-                bufs = self.host_buffers(table, want, cap, snapshot, rng)
+                bufs = self.host_buffers(table, want, cap, snapshot, rng,
+                                         **how)
             if prefetcher is not None:
                 prefetcher.kick()
             t = self._upload(bufs, cap)
             memaccount.charge("staging", _nbytes(t.values()), item=table)
         else:
+            tail = (shape.direct, shape.prune, shape.parts)
             with self._cache_mu:
-                missing = [c for c in want + ["@present"]
-                           if (table, c, cap, version)
-                           not in self._stage_cache]
+                t, missing = {}, []
+                for c in want + ["@present"]:
+                    hit = self._stage_cache.get((table, c, cap, version)
+                                                + tail, MISS)
+                    if hit is MISS:
+                        missing.append(c)
+                    else:
+                        t[c] = hit
                 if missing:
                     staged = self._upload(self.host_buffers(
                         table, [c for c in missing if c != "@present"], cap,
-                        snapshot, None), cap)
+                        snapshot, None, **how), cap)
                     memaccount.charge("staging", _nbytes(staged.values()),
                                       item=table)
-                    self._stage_cache.update(
-                        {(table, c, cap, version): v
-                         for c, v in staged.items() if c in missing})
-                t = {c: self._stage_cache[(table, c, cap, version)]
-                     for c in want + ["@present"]}
+                    for c, v in staged.items():
+                        if c in missing:
+                            t[c] = v
+                            self._stage_cache.put(
+                                (table, c, cap, version) + tail, v,
+                                version=version)
         return TableData(table, {c: t[c] for c in want}, t["@present"],
                          ref_capacity=shape.ref_capacity)
 
-    def host_buffers(self, table, names, cap, snapshot, rng) -> dict:
+    def host_buffers(self, table, names, cap, snapshot, rng, parts=None,
+                     prune=None, direct=None) -> dict:
         """Read ``names`` of every segment from the store (rows [lo, hi) of
         each when ``rng`` is given) into [nseg * cap] host buffers, pinned
-        for a card, with the "@present" live-slot mask. Each segment is
-        one unit of the read pool; units write disjoint slices."""
+        for a card, with the "@present" live-slot mask. A partitioned
+        parent reads its ``parts`` one after another in each segment,
+        ``prune`` skips the blocks the zone maps and block indexes rule
+        out, and a ``direct`` dispatch reads its one segment (the others
+        stage no rows). Each segment is one unit of the read pool; units
+        write disjoint slices."""
         schema = self.catalog.get(table)
         dev = self.layout.device
         storage = sorted({c[len(VALID_PREFIX):] if c.startswith(VALID_PREFIX)
@@ -1334,20 +1491,27 @@ class Executor:
             faults.check("cancel_in_staging", segment=seg)
             if stmt_ctx is not None:
                 stmt_ctx.check()
-            # a whole segment decodes its block files straight into its
-            # slot of each buffer (a directory's store; the in-memory one
-            # ignores it)
-            dest = ({c: views[c][seg * cap: (seg + 1) * cap]
-                     for c in storage if c in views}
-                    if rng is None else None)
-            with memaccount.ACCOUNTS.bind(stmt_acct):
-                cols, valids, n = self.store.read_segment(
-                    table, seg, storage, snapshot, dest=dest)
+            if direct is not None and seg != direct:
+                cols, valids, n = {}, {}, 0
+            else:
+                # a whole segment decodes its block files straight into
+                # its slot of each buffer, a partitioned parent's children
+                # each at its offset (a directory's store; the in-memory
+                # one copies there)
+                dest = ({c: views[c][seg * cap: (seg + 1) * cap]
+                         for c in storage if c in views}
+                        if rng is None else None)
+                with memaccount.ACCOUNTS.bind(stmt_acct):
+                    cols, valids, n = self.store.read_segment(
+                        table, seg, storage, snapshot, prune=prune,
+                        dest=dest, parts=parts)
             lo = 0
             if rng is not None:
                 lo, n = rng[0], max(min(n, rng[1]) - rng[0], 0)
             for c, view in views.items():
-                if c == "@present":
+                if not n:
+                    pass
+                elif c == "@present":
                     arr = np.ones(n, dtype=bool)
                 elif c.startswith(VALID_PREFIX):
                     v = valids.get(c[len(VALID_PREFIX):])
@@ -1355,9 +1519,10 @@ class Executor:
                         else v[lo:lo + n]
                 else:
                     arr = cols[c][lo:lo + n]
-                slot = view[seg * cap: seg * cap + n]
-                if not np.may_share_memory(arr, slot):
-                    slot[:] = arr
+                if n:
+                    slot = view[seg * cap: seg * cap + n]
+                    if not np.may_share_memory(arr, slot):
+                        slot[:] = arr
                 view[seg * cap + n: (seg + 1) * cap] = 0
             return n
 

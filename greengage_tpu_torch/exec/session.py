@@ -39,11 +39,15 @@ UNION [ALL], GROUPING SETS / ROLLUP / CUBE, SELECT without FROM — a
 constant target list on the host, anything else through the ConstRel
 device path — and WITH RECURSIVE, a fixpoint over worktables), EXPLAIN
 [ANALYZE] of a SELECT, CREATE TABLE (DISTRIBUTED BY / RANDOMLY /
-REPLICATED), DROP TABLE, ANALYZE [table], CREATE EXTENSION, SET and SHOW
-of the settings the port holds, INSERT (VALUES and SELECT), COPY FROM and
-TO a file, DELETE and UPDATE (autocommit: deletion bitmaps and appended
-row versions, the store's visimap), ``load_table`` for bulk loads and
-``vacuum`` for compaction. Writers are serialised against each other by
+REPLICATED, PARTITION BY RANGE | LIST with a DEFAULT), ALTER TABLE ...
+ADD | DROP PARTITION, DROP TABLE, CREATE | DROP INDEX (block-value
+indexes), ANALYZE [table], CREATE EXTENSION, SET and SHOW of the settings
+the port holds, INSERT (VALUES and SELECT), COPY FROM and TO a file,
+DELETE and UPDATE (autocommit: deletion bitmaps and appended row
+versions, the store's visimap; a partitioned table's children
+republished in one commit), ``load_table`` for bulk loads (a partitioned
+table's rows routed to its children), ``vacuum`` for compaction and
+``expand`` for a new width. Writers are serialised against each other by
 ``_RWLock`` (appends share it, one per table; DELETE, UPDATE and DDL hold
 it alone) and readers read one committed snapshot, so a statement never
 sees half of a write. Every other statement raises a SqlError naming the
@@ -76,11 +80,11 @@ from greengage_tpu_torch import expr as E
 from greengage_tpu_torch import types as T
 from greengage_tpu_torch.analysis.plancheck import validate_plan
 from greengage_tpu_torch.catalog import (Catalog, Column, DistPolicy,
-                                         PolicyKind, TableSchema)
+                                         Partition, PolicyKind, TableSchema)
 from greengage_tpu_torch.config import Settings
+from greengage_tpu_torch.exec.compile import collect_scans
 from greengage_tpu_torch.exec.executor import (Executor, OutOfDeviceMemory,
-                                               QueryError, Result, _scans,
-                                               shape_of)
+                                               QueryError, Result, shape_of)
 from greengage_tpu_torch.parallel.mesh import make_layout
 from greengage_tpu_torch.planner import cost as _cost
 from greengage_tpu_torch.planner import plan_query
@@ -112,9 +116,6 @@ _LATER = {
     A.RetrieveStmt: "cursors: ROADMAP Queue 1 item 1h",
     A.CloseCursorStmt: "cursors: ROADMAP Queue 1 item 1h",
     A.CreateExternalTableStmt: "external tables: ROADMAP Queue 1 item 1b-ii",
-    A.AlterTableStmt: "ALTER TABLE: ROADMAP Queue 1 item 1a-ii",
-    A.CreateIndexStmt: "indexes: ROADMAP Queue 1 item 1a-ii",
-    A.DropIndexStmt: "indexes: ROADMAP Queue 1 item 1a-ii",
 }
 
 
@@ -166,8 +167,11 @@ class Database:
             self.catalog._save()   # the width, before the first table
             self.store = TableStore(path, self.catalog)
             # in-doubt resolution on open: a load staged but not committed
-            # rolls back, committed lines fold into the root
+            # rolls back, committed lines fold into the root; a width the
+            # manifest committed but the catalog missed (an expand cut
+            # short) is adopted
             self.store.manifest.recover()
+            self.store.reconcile_widths()
         else:
             self.path = tempfile.mkdtemp(prefix="ggtpu_")
             self._path_rm = weakref.finalize(self, shutil.rmtree, self.path,
@@ -178,6 +182,12 @@ class Database:
         self._overload_seen = False
         self.settings = Settings()
         self.store.settings = self.settings
+        # the block cache reads scan_cache_limit_mb live, and holds the
+        # staged tensors on a card to a share of the card's memory
+        self.store.blockcache.settings = self.settings
+        if self.device.type == "cuda":
+            self.store.blockcache.card_bytes = \
+                torch.cuda.get_device_properties(self.device).total_memory
         self.store.log = self.log
         # the cost model's process-wide knobs, installed as the JAX session
         # installs them at connect: the directory's calibration.json (the
@@ -237,6 +247,9 @@ class Database:
         self._write_lock = _RWLock()
         self._table_locks: dict = {}
         self._table_locks_mu = threading.Lock()
+        # tables dropped (DROP TABLE, DROP PARTITION): the log cursors
+        # check when they register (ROADMAP Queue 1 item 1h), bounded
+        self._drop_log: list[str] = []
         self._load_extensions()
 
     def _load_extensions(self) -> None:
@@ -370,11 +383,11 @@ class Database:
 
     def _overload_tick(self) -> None:
         """Evaluate the process-wide brownout controller (rate-limited
-        inside) and log a transition this Database has not seen yet. The
-        JAX session also evicts its block cache to the shrunken budget on
-        entry; the port has no block cache (ROADMAP Queue 1 item 1a-ii).
-        Never raises: overload protection must not fail the statement it
-        protects."""
+        inside) and, on a transition this Database has not seen yet, evict
+        the block cache to its budget (``limit_bytes`` reads the brownout
+        factor, so entry frees bytes now, staged device tensors included,
+        instead of at the next insert) and log the edge. Never raises:
+        overload protection must not fail the statement it protects."""
         try:
             state = _overload.CONTROLLER.evaluate(self.settings)
             if state == self._overload_seen:
@@ -383,12 +396,14 @@ class Database:
             snap = _overload.CONTROLLER.snapshot()
             with _trace.span("brownout-transition", cat="overload",
                              entered=state):
+                self.store.blockcache.evict_to_fit()
                 if state:
                     self.log.log(
                         "WARNING", "overload",
-                        f"brownout entered: {snap.get('reason')} — batch "
-                        "serving disabled, admissions prefer the spill "
-                        "passes")
+                        f"brownout entered: {snap.get('reason')} — "
+                        f"block-cache budget x{snap.get('cache_factor')}, "
+                        "batch serving disabled, admissions prefer the "
+                        "spill passes")
                 else:
                     self.log.info(
                         "overload", "brownout cleared: pressure below the "
@@ -435,11 +450,13 @@ class Database:
             return self._execute_write(stmt)
 
     def _table_lock(self, table: str):
-        """The per-table append serializer (same-table appenders queue)."""
+        """The per-table append serializer (same-table appenders queue; the
+        base table keys it, so partition children share their parent's)."""
+        base = table.split("#", 1)[0]
         with self._table_locks_mu:
-            lk = self._table_locks.get(table)
+            lk = self._table_locks.get(base)
             if lk is None:
-                lk = self._table_locks[table] = threading.RLock()
+                lk = self._table_locks[base] = threading.RLock()
             return lk
 
     def _append_needs_table_lock(self, table: str) -> bool:
@@ -451,7 +468,7 @@ class Database:
         session)."""
         if not bool(self.settings.write_intents_enabled):
             return True
-        schema = self.catalog.get(table)
+        schema = self.catalog.get(table.split("#", 1)[0])
         return any(c.type.kind is T.Kind.TEXT and c.encoding != "raw"
                    for c in schema.columns)
 
@@ -468,11 +485,22 @@ class Database:
             return self._create_extension(stmt)
         if isinstance(stmt, A.CreateTableStmt):
             return self._create_table(stmt)
+        if isinstance(stmt, A.AlterTableStmt):
+            return self._alter_table(stmt)
+        if isinstance(stmt, A.CreateIndexStmt):
+            return self._create_index(stmt)
+        if isinstance(stmt, A.DropIndexStmt):
+            return self._drop_index(stmt)
         if isinstance(stmt, A.DropTableStmt):
             existed = stmt.name in self.catalog
+            # every storage table backing the relation: a partitioned
+            # table's children are "<parent>#<part>"
+            storage = (self.catalog.get(stmt.name).storage_tables()
+                       if existed else [])
             self.catalog.drop_table(stmt.name, stmt.if_exists)
             if existed:
-                self.store.drop_table(stmt.name)
+                self._note_drop(stmt.name)
+                self.store.drop_table(stmt.name, storage)
                 self.executor.invalidate_table(stmt.name)
             return "DROP TABLE"
         if isinstance(stmt, A.AnalyzeStmt):
@@ -526,9 +554,9 @@ class Database:
 
     # ------------------------------------------------------------------
     def _create_table(self, stmt: A.CreateTableStmt) -> str:
-        if stmt.partition_kind is not None:
-            raise SqlError("partitioned tables are not ported yet (ROADMAP "
-                           "Queue 1 item 1a-ii)")
+        """CREATE TABLE, with PARTITION BY RANGE | LIST (single-level
+        partitioning, cdbpartition.c's role): each partition's rows live
+        in a child storage table ``<name>#<partition>``."""
         cols = [Column(c.name, type_from_name(c.type_name, c.typmod),
                        not c.not_null) for c in stmt.columns]
         kind = {"hash": PolicyKind.HASH, "random": PolicyKind.RANDOM,
@@ -536,10 +564,194 @@ class Database:
         policy = DistPolicy(kind, tuple(stmt.dist_keys)
                             if kind is PolicyKind.HASH else (),
                             self.numsegments)
-        self.catalog.create_table(TableSchema(stmt.name, cols, policy,
-                                              dict(stmt.options)),
-                                  stmt.if_not_exists)
+        schema = TableSchema(stmt.name, cols, policy, dict(stmt.options))
+        if stmt.partition_kind is not None:
+            if stmt.partition_col not in [c.name for c in cols]:
+                raise SqlError(
+                    f"partition column {stmt.partition_col} is not a column")
+            pcol = schema.column(stmt.partition_col)
+            if pcol.type.kind is T.Kind.TEXT:
+                raise SqlError("TEXT partition keys are not supported")
+            if policy.kind is PolicyKind.REPLICATED:
+                # as in Greenplum: replicated tables cannot be partitioned
+                raise SqlError("DISTRIBUTED REPLICATED tables cannot be "
+                               "partitioned")
+            schema.partition_by = (stmt.partition_kind, stmt.partition_col)
+            parts: list[Partition] = []
+            for pd in stmt.partition_defs:
+                parts.extend(self._build_partitions(pd, pcol,
+                                                    stmt.partition_kind))
+            self._validate_partitions(parts, stmt.partition_kind, stmt.name)
+            schema.partitions = parts
+        self.catalog.create_table(schema, stmt.if_not_exists)
         return "CREATE TABLE"
+
+    def _part_literal(self, node, col):
+        """A partition bound literal in the column's storage representation
+        (dates as epoch days, decimals scaled); NULL bounds are meaningless
+        (NULL keys route to the DEFAULT partition) and rejected."""
+        binder = Binder(self.catalog, self.store)
+        lit = binder._expr(node, _EmptyScope())
+        if not isinstance(lit, E.Literal):
+            raise SqlError("partition bounds must be literals")
+        lit = binder._coerce_literal(lit, col.type)
+        if lit.value is None:
+            raise SqlError("partition bounds/values cannot be NULL")
+        return lit.value
+
+    def _build_partitions(self, pd, pcol, kind) -> list[Partition]:
+        """One partition definition -> its partitions (EVERY expands a
+        RANGE definition into ``<name>_<k>`` steps of the column's storage
+        units: days for a DATE)."""
+        if pd.default:
+            return [Partition(pd.name, default=True)]
+        if kind == "list":
+            if not pd.values:
+                raise SqlError(
+                    f"partition {pd.name}: LIST partitions need VALUES")
+            if pd.lo is not None or pd.hi is not None or pd.every is not None:
+                raise SqlError(
+                    f"partition {pd.name}: START/END/EVERY are RANGE syntax")
+            vals = tuple(self._part_literal(v, pcol) for v in pd.values)
+            return [Partition(pd.name, values=vals)]
+        if pd.values:
+            raise SqlError(
+                f"partition {pd.name}: VALUES is LIST syntax; this table "
+                "is partitioned BY RANGE")
+        lo = self._part_literal(pd.lo, pcol) if pd.lo is not None else None
+        hi = self._part_literal(pd.hi, pcol) if pd.hi is not None else None
+        if pd.every is None:
+            return [Partition(pd.name, lo=lo, hi=hi)]
+        if lo is None or hi is None:
+            raise SqlError("EVERY requires both START and END")
+        binder = Binder(self.catalog, self.store)
+        step_lit = binder._expr(pd.every, _EmptyScope())
+        if not isinstance(step_lit, E.Literal) \
+                or not isinstance(step_lit.value, (int, float)):
+            raise SqlError("EVERY step must be a numeric literal "
+                           "(storage units: days for DATE)")
+        step = int(step_lit.value) if isinstance(lo, int) else step_lit.value
+        if not step or step <= 0:
+            raise SqlError("EVERY step must be positive")
+        out, k, cur = [], 1, lo
+        while cur < hi:
+            nxt = min(cur + step, hi)
+            out.append(Partition(f"{pd.name}_{k}", lo=cur, hi=nxt))
+            cur, k = nxt, k + 1
+        return out
+
+    @staticmethod
+    def _validate_partitions(parts, kind, table) -> None:
+        names = [p.name for p in parts]
+        if len(set(names)) != len(names):
+            raise SqlError(f"duplicate partition name in {table}")
+        if sum(1 for p in parts if p.default) > 1:
+            raise SqlError("multiple DEFAULT partitions")
+        real = [p for p in parts if not p.default]
+        if kind == "range":
+            bounded = sorted(real, key=lambda p: (
+                p.lo is not None, p.lo if p.lo is not None else 0))
+            for a, b in zip(bounded, bounded[1:]):
+                if a.hi is None or b.lo is None or b.lo < a.hi:
+                    raise SqlError(
+                        f"overlapping range partitions {a.name}/{b.name}")
+        else:
+            seen: set = set()
+            for p in real:
+                for v in p.values:
+                    if v in seen:
+                        raise SqlError(
+                            f"value {v!r} in multiple list partitions")
+                    seen.add(v)
+        if not parts:
+            raise SqlError("partitioned table needs at least one partition")
+
+    def _alter_table(self, stmt: A.AlterTableStmt) -> str:
+        """ALTER TABLE ... ADD | DROP PARTITION (cdbpartition.c's partition
+        maintenance). DROP is O(1): the child storage table goes, no other
+        partition moves."""
+        schema = self.catalog.get(stmt.table)
+        if not schema.is_partitioned:
+            raise SqlError(f'table "{stmt.table}" is not partitioned')
+        kind, pcol_name = schema.partition_by
+        if stmt.action == "add_partition":
+            new = self._build_partitions(stmt.partition,
+                                         schema.column(pcol_name), kind)
+            self._validate_partitions(schema.partitions + new, kind,
+                                      stmt.table)
+            schema.partitions.extend(new)
+            self.catalog._save()
+            with self._cache_mu:
+                self._select_cache.clear()
+            return "ALTER TABLE"
+        part = schema.partition(stmt.partition_name)   # KeyError -> message
+        child = part.storage_name(stmt.table)
+        if len(schema.partitions) == 1:
+            raise SqlError("cannot drop the last partition; DROP TABLE")
+        schema.partitions = [p for p in schema.partitions
+                             if p.name != part.name]
+        self.catalog._save()
+        self._note_drop(stmt.table)
+        self.store.drop_table(child, [child])
+        with self._cache_mu:
+            self._select_cache.clear()
+        self.executor.invalidate_table(stmt.table)
+        return "ALTER TABLE"
+
+    def _note_drop(self, table: str) -> None:
+        self._drop_log.append(table)
+        del self._drop_log[:-256]
+
+    # ---- CREATE INDEX, DROP INDEX (pg_index's role) ----------------------
+    def _create_index(self, stmt: A.CreateIndexStmt) -> str:
+        """CREATE INDEX registers the index and builds the block-value
+        index of every data file (or chunk) of the column now, so the
+        first probe does not pay it. 'btree' and 'bitmap' both lower to
+        the block index (storage/table_store.py)."""
+        if stmt.using not in ("btree", "bitmap"):
+            raise SqlError(f"unknown index access method {stmt.using!r}")
+        for schema in (self.catalog.get(t) for t in self.catalog.tables):
+            if stmt.name in schema.indexes:
+                if stmt.if_not_exists:
+                    return "CREATE INDEX"
+                raise SqlError(f'index "{stmt.name}" already exists')
+        schema = self.catalog.get(stmt.table)
+        col = schema.column(stmt.column)
+        if col.type.kind is T.Kind.TEXT and col.encoding == "raw":
+            raise SqlError(
+                "raw-encoded text cannot be indexed (block indexes probe "
+                "storage values; raw storage has no per-row value column)")
+        schema.indexes[stmt.name] = {"column": stmt.column,
+                                     "using": stmt.using}
+        self.catalog._save()
+        self._build_index_sidecars(schema)
+        with self._cache_mu:
+            self._select_cache.clear()
+        # staged inputs predate the index (same manifest version): drop
+        # them so the next scan prunes
+        self.executor._stage_cache.clear()
+        return "CREATE INDEX"
+
+    def _build_index_sidecars(self, schema) -> None:
+        snap = self.store.manifest.snapshot()
+        cols = {d["column"] for d in schema.indexes.values()}
+        for storage in schema.storage_tables():
+            self.store.build_block_indexes(storage, cols, snap)
+
+    def _drop_index(self, stmt: A.DropIndexStmt) -> str:
+        for schema in (self.catalog.get(t) for t in self.catalog.tables):
+            if stmt.name in schema.indexes:
+                del schema.indexes[stmt.name]
+                self.catalog._save()
+                with self._cache_mu:
+                    self._select_cache.clear()
+                # staged inputs an index pruned must not serve the scans
+                # that no longer probe it
+                self.executor._stage_cache.clear()
+                return "DROP INDEX"
+        if stmt.if_exists:
+            return "DROP INDEX"
+        raise SqlError(f'index "{stmt.name}" does not exist')
 
     def _create_extension(self, stmt) -> str:
         """Import the extension module (registering its functions) and
@@ -571,12 +783,68 @@ class Database:
         return "ANALYZE"
 
     def load_table(self, table: str, columns: dict, valids: dict | None = None):
-        """Bulk load host arrays (the gpfdist/COPY fast path)."""
+        """Bulk load host arrays (the gpfdist/COPY fast path); a
+        partitioned table's rows are routed to its children."""
         with self._write_lock.shared(), \
                 (self._table_lock(table)
                  if table in self.catalog
                  and self._append_needs_table_lock(table) else _NullSlot()):
-            return self.store.insert(table, columns, valids)
+            return self._write_rows(table, columns, valids)
+
+    def _write_rows(self, table: str, columns, valids) -> int:
+        """Every append (INSERT, COPY, ``load_table``): a partitioned
+        table's rows are routed to its children here."""
+        schema = self.catalog.get(table)
+        if schema.is_partitioned and "#" not in table:
+            return self._write_routed(schema, columns, valids or {})
+        return self.store.insert(table, columns, valids)
+
+    def _write_routed(self, schema, columns, valids) -> int:
+        """Split a row batch by partition and append each slice to its
+        child table, every child in ONE commit (the JAX session's
+        autocommit transaction over the children). The whole batch is
+        checked before any child stages."""
+        for c in schema.columns:
+            v = valids.get(c.name)
+            if not c.nullable and v is not None and not np.all(v):
+                raise SqlError(
+                    f'null value in column "{c.name}" violates not-null '
+                    "constraint")
+        _kind, pcol = schema.partition_by
+        col = schema.column(pcol)
+        raw = columns[pcol]
+        if col.type.kind is T.Kind.DATE and not isinstance(raw, np.ndarray):
+            vals = np.array([T.date_to_days(v) for v in raw], dtype=np.int32)
+        elif col.type.kind is T.Kind.DECIMAL \
+                and not isinstance(raw, np.ndarray):
+            vals = np.array([T.decimal_to_int(v, col.type.scale)
+                             for v in raw], dtype=np.int64)
+        else:
+            vals = np.asarray(raw, dtype=col.type.np_dtype)
+        pidx = np.asarray(schema.route_rows(vals, valids.get(pcol)))
+        if (pidx < 0).any():
+            bad = vals[pidx < 0][0]
+            raise SqlError(
+                f"no partition of {schema.name} accepts value {bad!r} "
+                "(and there is no DEFAULT partition)")
+
+        def _slice(v, m):
+            if isinstance(v, T.Coded):
+                return T.Coded(v.vocab, v.codes[m])
+            if isinstance(v, np.ndarray):
+                return v[m]
+            return np.asarray(v, dtype=object)[m]
+
+        items = []
+        for i, p in enumerate(schema.partitions):
+            m = pidx == i
+            if not m.any():
+                continue
+            items.append((p.storage_name(schema.name),
+                          {k: _slice(v, m) for k, v in columns.items()},
+                          {k: _slice(v, m) for k, v in valids.items()
+                           if v is not None}))
+        return self.store.insert_parts(items)
 
     # ---- INSERT, COPY (the JAX session's _insert, _copy) ----------------
     def _insert(self, stmt: A.InsertStmt) -> str:
@@ -615,7 +883,7 @@ class Database:
             va = np.array(valids[n], dtype=bool)
             if not va.all():
                 enc_valids[n] = va
-        n = self.store.insert(stmt.table, enc_cols, enc_valids)
+        n = self._write_rows(stmt.table, enc_cols, enc_valids)
         return f"INSERT 0 {n}"
 
     def _insert_select(self, schema, stmt) -> str:
@@ -657,7 +925,7 @@ class Database:
             cols[n] = data
             if v is not None:
                 valids[n] = np.asarray(v, dtype=bool)
-        n = self.store.insert(schema.name, cols, valids)
+        n = self._write_rows(schema.name, cols, valids)
         return f"INSERT 0 {n}"
 
     def _copy(self, stmt: A.CopyStmt) -> str:
@@ -698,7 +966,7 @@ class Database:
                 # try covers the parse alone, never a write
                 pass
             if parsed is not None:
-                n = self.store.insert(stmt.table, *parsed)
+                n = self._write_rows(stmt.table, *parsed)
                 return f"COPY {n}"
         with open(stmt.path, "rb") as f:
             blob = f.read()
@@ -737,7 +1005,7 @@ class Database:
                                             dtype=c.type.np_dtype)
             if not va.all():
                 enc_valids[c.name] = va
-        n = self.store.insert(stmt.table, enc_cols, enc_valids)
+        n = self._write_rows(stmt.table, enc_cols, enc_valids)
         tag = f"COPY {n}"
         if rejects:
             tag += f" (rejected {len(rejects)} rows, logged)"
@@ -757,14 +1025,31 @@ class Database:
         return res, outs
 
     def _check_no_raw_dml(self, table: str) -> None:
-        schema = self.catalog.get(table)
         if self.store.raw_column_names(table):
             raise SqlError(
                 f'table "{table}" has raw-encoded TEXT columns: raw TEXT is '
                 "not ported yet (ROADMAP Queue 1 item 1e)")
-        if schema.is_partitioned:
-            raise SqlError("DELETE and UPDATE of a partitioned table are not "
-                           "ported yet (ROADMAP Queue 1 item 1a-ii)")
+
+    def _replace_table(self, schema, enc, valids) -> None:
+        """Republish a table whole. A partitioned table routes the rows by
+        partition key and replaces EVERY child in one commit (a child that
+        gets no rows becomes empty): an UPDATE may move rows between
+        partitions."""
+        if not schema.is_partitioned:
+            self.store.replace_contents(schema.name, enc, valids)
+            return
+        _kind, pcol = schema.partition_by
+        pidx = np.asarray(schema.route_rows(enc[pcol], valids.get(pcol)))
+        if (pidx < 0).any():
+            bad = enc[pcol][pidx < 0][0]
+            raise SqlError(
+                f"no partition of {schema.name} accepts value {bad!r} "
+                "(and there is no DEFAULT partition)")
+        self.store.replace_parts(
+            [(p.storage_name(schema.name),
+              {k: v[pidx == i] for k, v in enc.items()},
+              {k: v[pidx == i] for k, v in valids.items()})
+             for i, p in enumerate(schema.partitions)])
 
     def _predicate_mask(self, table: str, where) -> np.ndarray:
         """A DML predicate over every visible row: -> bool mask in Gather
@@ -823,13 +1108,31 @@ class Database:
         if stmt.where is None:
             empty = {c.name: np.empty(0, dtype=c.type.np_dtype)
                      for c in schema.columns}
-            self.store.replace_contents(stmt.table, empty, {})
+            self._replace_table(schema, empty, {})
             return f"DELETE {total}"
-        mask = self._predicate_mask(stmt.table, stmt.where)
-        masks = self._visimap_masks(stmt.table, mask)
-        if masks:
-            self.store.set_delmask(stmt.table, masks)
-        return f"DELETE {int(mask.sum())}"
+        if not schema.is_partitioned:
+            mask = self._predicate_mask(stmt.table, stmt.where)
+            masks = self._visimap_masks(stmt.table, mask)
+            if masks:
+                self.store.set_delmask(stmt.table, masks)
+            return f"DELETE {int(mask.sum())}"
+        # a partitioned table republishes its survivors (the predicate
+        # false or NULL), as the JAX session does: per-child bitmaps would
+        # need each child's row span in the scan
+        survive = A.Bin("or", A.Unary("not", stmt.where),
+                        A.IsNullTest(stmt.where, False))
+        sel = A.SelectStmt(items=[A.SelectItem(A.Star())],
+                           from_=[A.BaseTable(stmt.table)], where=survive)
+        res, outs = self._run_raw(sel)
+        enc, valids = {}, {}
+        for c, o in zip(schema.columns, outs):
+            enc[c.name] = np.ascontiguousarray(res.cols[o.id],
+                                               dtype=c.type.np_dtype)
+            v = res.valids.get(o.id)
+            if v is not None:
+                valids[c.name] = v
+        self._replace_table(schema, enc, valids)
+        return f"DELETE {total - len(res)}"
 
     def _update(self, stmt: A.UpdateStmt) -> str:
         """UPDATE: the matched rows' old versions marked in the bitmap and
@@ -879,7 +1182,8 @@ class Database:
         flag = stmt.where if stmt.where is not None else A.Bool(True)
         items.append(A.SelectItem(flag, alias="__upd"))
         flag_slot = next_slot
-        visimap = stmt.where is not None
+        # a partitioned table (and an UPDATE without WHERE) republishes
+        visimap = not schema.is_partitioned and stmt.where is not None
         pred_mask = (self._predicate_mask(stmt.table, stmt.where)
                      if visimap else None)
         sel = A.SelectStmt(items=items, from_=[A.BaseTable(stmt.table)],
@@ -928,7 +1232,7 @@ class Database:
             if masks or len(res):
                 self.store.update_split(stmt.table, masks, enc, valids)
             return f"UPDATE {int(pred_mask.sum())}"
-        self.store.replace_contents(stmt.table, enc, valids)
+        self._replace_table(schema, enc, valids)
         return f"UPDATE {int(mask.sum())}"
 
     def vacuum(self, table: str | None = None) -> dict:
@@ -1219,7 +1523,7 @@ class Database:
                 f"\n Execution time: {res.wall_ms:.2f} ms, rows: {len(res)}"
                 f"\n Segments: {s.get('segments')}, capacity tiers used: "
                 f"{s.get('tiers_used')}"
-                f"\n Tables scanned: {', '.join(sorted(_scans(planned, {})))}")
+                f"\n Tables scanned: {', '.join(sorted(collect_scans(planned)))}")
             if s.get("stage_ms") is not None \
                     and s.get("dispatch_ms") is not None:
                 text += (f"\n Host data path: staging {s['stage_ms']:.2f} ms"
@@ -1233,6 +1537,19 @@ class Database:
                 # version on the CPU (ops/fused_agg.py)
                 route = "cuda" if self.device.type == "cuda" else "plain"
                 text += f"\n Fused dense-agg kernel: {route}"
+            io = s.get("scan_io") or {}
+            if io:
+                text += (f"\n Scan I/O: {io.get('scan_files_read', 0)} files"
+                         f" read, {io.get('scan_bytes_decoded', 0)} bytes "
+                         f"decoded, block cache "
+                         f"{io.get('scan_cache_hit', 0)} hit / "
+                         f"{io.get('scan_cache_miss', 0)} miss / "
+                         f"{io.get('scan_cache_evict', 0)} evicted")
+            for t, (kept, total) in (s.get("zone_prune") or {}).items():
+                text += f"\n Zone-map prune {t}: {kept}/{total} blocks"
+            for t, (kept, total) in (s.get("dynamic_prune") or {}).items():
+                text += (f"\n Dynamic partition selector {t}: "
+                         f"{kept}/{total} children staged")
             if s.get("spill_passes"):
                 text += f"\n Spill passes: {s['spill_passes']}"
             for k, v in (s.get("metrics") or {}).items():
@@ -1608,6 +1925,40 @@ class Database:
         if t.kind is T.Kind.BOOL:
             return bool(v), t
         return int(v), t
+
+    def expand(self, new_numsegments: int) -> dict:
+        """gpexpand's role: widen the cluster and redistribute every table.
+        Phase 1 adds segments to the topology and rebuilds the layout (the
+        port's segments are a leading tensor axis, so a new width is a new
+        ``nseg``): the executor's programs, stage cache and bound plans
+        are dropped with the old layout. Phase 2 rewrites each table at the
+        new width (ALTER TABLE ... EXPAND TABLE); a partitioned table's
+        children each, their shared policy moving once. -> {table: rows
+        re-placed}."""
+        with self._write_lock:
+            if new_numsegments <= self.numsegments:
+                raise ValueError("expansion must increase the segment count")
+            self.catalog.segments.expand(new_numsegments)
+            self.numsegments = new_numsegments
+            self.catalog._save()
+            self.executor.close()
+            self.layout = make_layout(new_numsegments, self.device)
+            self.executor = Executor(self.catalog, self.store, self.layout,
+                                     self.settings)
+            self.executor.feedback = self.feedback
+            with self._cache_mu:
+                self._select_cache.clear()
+            self.fts.stop()
+            self.fts = FtsProber(self.catalog.segments, self.device)
+            counters.set("mh_topology_version", self.catalog.segments.version)
+            moved = {}
+            for name in list(self.catalog.tables):
+                schema = self.catalog.get(name)
+                moved[name] = sum(
+                    self.store.rewrite_table(st, new_numsegments)
+                    for st in schema.storage_tables())
+            self.store.reap_gc()
+        return moved
 
     def close(self):
         """Stop the FTS prober and the batch server (its parked members go

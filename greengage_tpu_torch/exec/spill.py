@@ -286,7 +286,8 @@ def _run_passes(executor, pass_plan, consts, cols_spec, per_table, item,
     combos = list(itertools.product(*grids))
     wf = _workfile.SpillWorkfile(executor, cols_spec, item)
     prefetcher = _staging.PassPrefetcher(
-        executor, pass_plan, executor.store.manifest.snapshot(), caps)
+        executor, pass_plan, executor.store.manifest.snapshot(), caps,
+        (consts or {}).get("@params@"))
     try:
         for i, combo in enumerate(combos):
             interrupt.check_interrupts()   # spill pass boundary

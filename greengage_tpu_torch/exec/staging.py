@@ -177,13 +177,15 @@ class PassPrefetcher:
     A failed prefetch is only lost work: errors are dropped, ``close``
     joins."""
 
-    def __init__(self, executor, plan, snapshot, caps: dict):
+    def __init__(self, executor, plan, snapshot, caps: dict, pvec=None):
         self.executor = executor
         self.snapshot = snapshot
-        shapes = executor.table_shapes(plan, snapshot, caps)
-        # (table, staged column names, staged capacity) of every chunked
-        # base table
-        self.units = [(t, cols, shapes[t].capacity) for t, cols in
+        # the statement's parameter vector resolves its pruning as the
+        # executor's staging resolves it (the same kept blocks and parts)
+        shapes = executor.table_shapes(plan, snapshot, caps, None, pvec)
+        # (table, staged column names, staged shape) of every chunked base
+        # table
+        self.units = [(t, cols, shapes[t]) for t, cols in
                       executor.staged_columns(plan, snapshot).items()
                       if t in caps and not t.startswith("@")]
         self.enabled = bool(self.units)
@@ -193,13 +195,14 @@ class PassPrefetcher:
         self._mu = threading.Lock()
 
     def _warm(self, ranges: dict) -> None:
-        for table, cols, cap in self.units:
+        for table, cols, sh in self.units:
             rng = ranges.get(table)
             if rng is None:
                 continue
             try:
-                bufs = self.executor.host_buffers(table, cols, cap,
-                                                  self.snapshot, rng)
+                bufs = self.executor.host_buffers(
+                    table, cols, sh.capacity, self.snapshot, rng,
+                    parts=sh.parts, prune=sh.prune, direct=sh.direct)
             except Exception:
                 return   # a failed prefetch is only a lost warm-up
             with self._mu:

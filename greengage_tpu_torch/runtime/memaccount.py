@@ -5,9 +5,9 @@ analog).
   * ``MemoryAccount`` — one per-statement owner tree (thread-keyed in
     ``ACCOUNTS``, like the interrupt and trace registries; the account id
     is the statement id). Owners are the fixed taxonomy in ``OWNERS``:
-    host ``staging`` buffers, ``blockcache`` inserts (charged once the
-    block cache arrives with durable storage, ROADMAP Queue 1 item 1a),
-    ``spill`` captures and the program's ``device`` footprint. Charges
+    host ``staging`` buffers, ``blockcache`` inserts (storage/
+    blockcache.py: decoded blocks and the staged tensors), ``spill``
+    captures and the program's ``device`` footprint. Charges
     from staging-pool threads ride an explicit ``bind()``.
   * measured programs — torch has no analysis of a program before it
     runs, so the executor measures the first launch of each cached
@@ -424,8 +424,9 @@ def update_process_gauges() -> dict:
 # ---- the mem op's report -----------------------------------------------
 def report(db=None) -> dict:
     """Live device stats, in-flight and recent accounting trees, the
-    runaway tracker's ledger, host gauges and, for a Database, each
-    cached program's estimate beside its measurement."""
+    runaway tracker's ledger, host gauges and, for a Database, its block
+    cache's budget and members and each cached program's estimate beside
+    its measurement."""
     from greengage_tpu_torch.runtime.runaway import TRACKER
 
     out = {
@@ -436,6 +437,7 @@ def report(db=None) -> dict:
         "vmem_tracker": TRACKER.snapshot(),
     }
     if db is not None:
+        out["block_cache"] = db.store.blockcache.stats()
         out["executables"] = executable_mem_summary(db.executor)
     return out
 

@@ -33,9 +33,9 @@ Effects while browned out (pull-based — consumers read the controller):
     no headroom;
   * new admissions prefer the spill passes: the executor scales its
     admission ceiling by ``brownout_vmem_factor``;
-  * ``cache_factor()`` scales the block-cache budget; the port's store is
-    in memory and has no block cache until durable storage (ROADMAP Queue
-    1 item 1a), so nothing reads it yet.
+  * ``cache_factor()`` scales the block-cache budget
+    (storage/blockcache.py ``CacheRegistry.limit_bytes`` reads it live;
+    the session evicts to the shrunken budget on entry).
 
 Exit is hysteretic twice over: the watermark bar drops to the exit
 fraction, AND every signal must stay clear for ``brownout_exit_s``.

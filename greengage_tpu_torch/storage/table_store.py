@@ -20,25 +20,45 @@ reading the rows it saw.
     (storage/manifest.py ``prepare_delta``/``commit_delta``); TEXT
     dictionaries live in ``data/<table>/dict_<col>.json``. Reads decode
     the files (straight into a staging buffer's slot where the caller
-    gives one). A file that fails verification is renamed into
-    ``<root>/.quarantine/`` with a sidecar and the typed
+    gives one) through the block cache. A file that fails verification is
+    renamed into ``<root>/.quarantine/`` with a sidecar and the typed
     ``CorruptionError`` is raised: repair from a mirror waits for ROADMAP
-    Queue 1 item 10, the block cache and zone-map pruning for item 1a-ii.
-    Appends (INSERT, COPY) commit through the manifest's write-intent path
-    where no dictionary grew (``write_intents_enabled``), else through the
-    per-table delta claim. DELETE and UPDATE never rewrite a data file:
-    they publish a per-segment deletion bitmap (``@del.<fileno>.ggb``, the
-    visimap analog, in the table's ``delmask`` and ``segfiles``) and UPDATE
-    appends the new row versions; VACUUM (``rewrite_table``) compacts the
-    bitmaps away. The keep masks and visible row counts are cached per
-    manifest version in a small cache of the store's own (the JAX store
-    keeps them in its block cache, item 1a-ii).
+    Queue 1 item 10. Appends (INSERT, COPY) commit through the manifest's
+    write-intent path where no dictionary grew (``write_intents_enabled``),
+    else through the per-table delta claim. DELETE and UPDATE never
+    rewrite a data file: they publish a per-segment deletion bitmap
+    (``@del.<fileno>.ggb``, the visimap analog, in the table's ``delmask``
+    and ``segfiles``) and UPDATE appends the new row versions; VACUUM
+    (``rewrite_table``) compacts the bitmaps away, and expand rewrites a
+    table at a new width. A block index (CREATE INDEX) is a
+    ``<col>.<fileno>.bidx.npz`` sidecar beside each data file: sorted
+    (value, block) pairs, rebuilt when missing, reaped with its file.
   - ``MemoryTableStore(catalog)``: ``connect(path=None)``. Each write is a
     host numpy chunk per segment; nothing reaches a disk. (The JAX package
-    gives a Database without a path a temporary directory instead.) Its
-    deletion bitmaps are immutable arrays per (table, segment) in its
-    manifest, replaced whole by each DELETE or UPDATE; every write bumps
-    the version, so the same statements give the same rows and tags.
+    gives a Database without a path a temporary directory instead.) A
+    chunk plays a block file's part: its zone maps are computed at append
+    time in blocks of ``DEFAULT_BLOCK_ROWS`` rows and its block indexes on
+    first use, so a pruned scan keeps the blocks (and counts them) as the
+    JAX store does. Its deletion bitmaps are immutable arrays per (table,
+    segment) in its manifest, replaced whole by each DELETE or UPDATE;
+    every write bumps the version, so the same statements give the same
+    rows and tags.
+
+Both stores keep their read-path caches in one byte-budgeted LRU registry
+(storage/blockcache.py, ``store.blockcache``): ``blocks`` (decoded block
+files), ``footers``, ``bidx`` (block indexes), ``prune`` (the kept blocks
+of a pruned segment read) and ``delmask`` (keep masks, visible row
+counts and the columns holding NULLs, per manifest version); the executor adds ``stage`` and ``dyn``.
+A scan with pushed predicates (``read_segment(..., prune=...)``) skips
+the blocks whose zone map, or whose block index on an indexed column,
+rules them out; ``last_prune`` holds this thread's (kept, total) blocks.
+Pruning is skipped for a segment with a deletion bitmap (its row
+numbering must stay whole).
+A partitioned table's rows live in child storage tables ``parent#part``;
+the parent's name reads as the union of its children (or of the ``parts``
+a pruned scan keeps) wherever a segment's rows, a count or a bound is
+asked for: a segment read lands each child's rows straight at its offset
+in the caller's slot.
 
 Raw-encoded TEXT (high-NDV strings kept as bytes) waits for item 1e: a
 column that would store raw raises NotImplementedError naming it.
@@ -46,6 +66,7 @@ column that would store raw raises NotImplementedError naming it.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import hashlib
 import json
@@ -53,17 +74,21 @@ import os
 import shutil
 import threading
 import time
+import tempfile
 import uuid
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from greengage_tpu_torch import types as T
-from greengage_tpu_torch.catalog import PolicyKind, TableSchema
+from greengage_tpu_torch.catalog import DistPolicy, PolicyKind, TableSchema
 from greengage_tpu_torch.runtime.faultinject import faults
 from greengage_tpu_torch.runtime.logger import counters
 from greengage_tpu_torch.storage import native
-from greengage_tpu_torch.storage.blockfile import (read_column_file,
+from greengage_tpu_torch.storage.blockcache import MISS, CacheRegistry
+from greengage_tpu_torch.storage.blockfile import (DEFAULT_BLOCK_ROWS,
+                                                   read_column_file,
                                                    read_footer,
                                                    write_column_file)
 from greengage_tpu_torch.storage.corruption import CorruptionError
@@ -80,8 +105,6 @@ RAW_WIDE_WORDS = RAW_WIDE_BYTES // 8
 # committed delta lines folded into the manifest's root at once (the
 # checkpoint; the JAX package's manifest_delta_fold_threshold default)
 FOLD_THRESHOLD = 64
-# keep masks and visible row counts cached per store and manifest version
-DELMASK_CACHE_ENTRIES = 256
 
 _RAW_LATER = ("raw-encoded TEXT is not ported yet (ROADMAP Queue 1 item 1e, "
               "raw TEXT)")
@@ -108,13 +131,20 @@ class _StoreBase:
         self._dicts: dict[tuple[str, str], Dictionary] = {}
         self._derived: dict[tuple[str, str], Dictionary] = {}
         self._dict_lock = threading.RLock()
-        # deletion-bitmap keep masks, (table, segment, manifest version) ->
-        # bool[rows] or None, and visible row counts, (table, version) ->
-        # [rows per segment]: at most DELMASK_CACHE_ENTRIES each (the JAX
-        # store's "delmask" block cache, ROADMAP Queue 1 item 1a-ii)
-        self._delmask_mu = threading.Lock()
-        self._delmask_cache: dict = {}
-        self._live_cache: dict = {}
+        # every read-path cache lives in ONE byte-accounted LRU registry
+        # (storage/blockcache.py, the bufmgr analog; its settings are
+        # wired by the session)
+        self.blockcache = CacheRegistry()
+        # deletion-bitmap keep masks, (table, segment, version) ->
+        # bool[rows] or None, and visible row counts, ("@live", table,
+        # version) -> [rows per segment]
+        self._delmask_cache = self.blockcache.cache("delmask")
+        # a pruned segment read's kept blocks: (table, segment, version,
+        # prune, indexed columns) -> (keep, kept, total, rows)
+        self._prune_cache = self.blockcache.cache("prune")
+        # block indexes: (table, file) -> (values, blocks)
+        self._bidx_cache = self.blockcache.cache("bidx")
+        self._tl = threading.local()   # per-thread last_prune
 
     # ---- dictionaries --------------------------------------------------
     def _load_dictionary(self, table: str, col: str) -> Dictionary:
@@ -239,26 +269,130 @@ class _StoreBase:
                                  "not-null constraint")
 
     # ---- the write path both stores share --------------------------------
+    def _storage_names(self, table: str, parts=None) -> list[str]:
+        """The storage tables holding ``table``'s rows: a partitioned
+        parent's children (``parts``, where a scan keeps fewer), else the
+        table itself."""
+        if parts is not None:
+            return list(parts)
+        schema = self.catalog.get(table) if table in self.catalog else None
+        return (schema.storage_tables()
+                if schema is not None and schema.name == table else [table])
+
+    def _sum_over(self, table: str, parts, count) -> list[int] | None:
+        """Per-segment ``count(storage table)`` summed over a partitioned
+        parent's children (or ``parts``); None for a plain table."""
+        names = self._storage_names(table, parts)
+        if names == [table]:
+            return None
+        per = [count(n) for n in names]
+        nseg = self.catalog.get(table).policy.numsegments
+        return [sum(c[s] for c in per) for s in range(nseg)]
+
+    def read_segment(self, table: str, seg: int, columns=None,
+                     snapshot: dict | None = None, prune=None, dest=None,
+                     parts=None):
+        """-> (cols {name: array}, valids {name: bool array | None},
+        nrows) of one segment's visible rows under ``snapshot`` (rows a
+        deletion bitmap marks are dropped). A partitioned parent reads its
+        children (``parts``: the ones a pruned scan keeps) one after
+        another. ``prune`` [(col, op, value)]: blocks whose zone map (or
+        block index, on an indexed column) rules them out are skipped, and
+        ``last_prune`` holds (kept, total) blocks; pruning is skipped while
+        a bitmap exists. ``dest`` ({column: preallocated slot of at least
+        the rows read}): a column lands in its slot (the returned array is
+        then a view of it), each child's rows at their offset, decoded
+        straight there where the store can."""
+        snap = snapshot or self.manifest.snapshot()
+        names = self._storage_names(table, parts)
+        if names == [table]:
+            return self._read_storage(table, seg, columns, snap, prune, dest)
+        schema = self.catalog.get(table)
+        want = columns if columns is not None else schema.column_names
+        dest = dest or {}
+        per, off, kept, total = [], 0, 0, 0
+        for child in names:
+            d = {c: v[off:] for c, v in dest.items() if c in want}
+            cols, valids, n = self._read_storage(child, seg, want, snap,
+                                                 prune, d)
+            per.append((cols, valids, n, off))
+            off += n
+            lp = self.last_prune
+            if lp is not None:
+                kept, total = kept + lp[0], total + lp[1]
+        self.last_prune = (kept, total) if total else None
+        cols_out: dict = {}
+        valids_out: dict = {}
+        for name in want:
+            d = dest.get(name)
+            if d is not None:
+                for c, _, n, at in per:
+                    slot = d[at: at + n]
+                    if n and not np.may_share_memory(c[name], slot):
+                        slot[:] = c[name]
+                cols_out[name] = d[:off]
+            else:
+                arrs = [c[name] for c, _, _, _ in per]
+                cols_out[name] = (np.concatenate(arrs) if arrs else
+                                  np.empty(0, schema.column(name)
+                                           .type.np_dtype))
+            vs = [v.get(name) for _, v, _, _ in per]
+            valids_out[name] = (None if all(v is None for v in vs) else
+                                np.concatenate([
+                                    np.ones(n, bool) if v is None else v
+                                    for v, (_, _, n, _) in zip(vs, per)]))
+        return cols_out, valids_out, off
+
+    def segment_rowcounts(self, table: str, snapshot: dict | None = None,
+                          parts=None) -> list[int]:
+        """Per-segment rows in the manifest, deleted ones too; a
+        partitioned parent sums its children (or ``parts``)."""
+        schema = self.catalog.get(table)
+        snap = snapshot or self.manifest.snapshot()
+        out = [0] * schema.policy.numsegments
+        for name in self._storage_names(table, parts):
+            tmeta = snap["tables"].get(name, {"nrows": {}})
+            for s in range(schema.policy.numsegments):
+                out[s] += int(tmeta["nrows"].get(str(s), 0))
+        return out
+
     def live_rowcounts(self, table: str,
                        snapshot: dict | None = None) -> list[int]:
         """Per-segment VISIBLE row counts (manifest rows less the deletion
-        bitmap): what read_segment returns. Cached per manifest version:
-        every statement's staging asks."""
+        bitmap): what read_segment returns; a partitioned parent sums its
+        children. Cached per manifest version: every statement's staging
+        asks."""
         snap = snapshot or self.manifest.snapshot()
-        key = (table, snap.get("version", 0))
-        with self._delmask_mu:
-            hit = self._live_cache.get(key)
-        if hit is not None:
+        version = snap.get("version", 0)
+        key = ("@live", table, version)
+        hit = self._delmask_cache.get(key, MISS)
+        if hit is not MISS:
             return list(hit)
-        out = []
-        for seg, n in enumerate(self.segment_rowcounts(table, snap)):
-            keep = self.delmask_keep(table, seg, snap)
-            out.append(int(keep.sum()) if keep is not None else n)
-        with self._delmask_mu:
-            if len(self._live_cache) >= DELMASK_CACHE_ENTRIES:
-                self._live_cache.clear()
-            self._live_cache[key] = out
+        out = self._sum_over(table, None,
+                             lambda n: self.live_rowcounts(n, snap))
+        if out is None:
+            out = []
+            for seg, n in enumerate(self.segment_rowcounts(table, snap)):
+                keep = self.delmask_keep(table, seg, snap)
+                out.append(int(keep.sum()) if keep is not None else n)
+        self._delmask_cache.put(key, out, version=version)
         return list(out)
+
+    def has_nulls(self, table: str, col: str,
+                  snapshot: dict | None = None) -> bool:
+        """True when any committed write of the column carried a validity
+        mask (the JAX store's .valid file); a partitioned parent asks its
+        children. The columns with one are found once per table and
+        manifest version: every statement's staging asks of each column."""
+        snap = snapshot or self.manifest.snapshot()
+        version = snap.get("version", 0)
+        key = ("@nulls", table, version)
+        cols = self._delmask_cache.get(key, MISS)
+        if cols is MISS:
+            cols = frozenset().union(*(self._valid_columns(n, snap)
+                                       for n in self._storage_names(table)))
+            self._delmask_cache.put(key, cols, version=version)
+        return col in cols
 
     def delmask_keep(self, table: str, seg: int,
                      snapshot: dict | None = None):
@@ -266,10 +400,11 @@ class _StoreBase:
         has no deletions; cached per manifest version. A mask covers the
         first len(mask) rows; rows appended after it are live."""
         snap = snapshot or self.manifest.snapshot()
-        key = (table, seg, snap.get("version", 0))
-        with self._delmask_mu:
-            if key in self._delmask_cache:
-                return self._delmask_cache[key]
+        version = snap.get("version", 0)
+        key = (table, seg, version)
+        hit = self._delmask_cache.get(key, MISS)
+        if hit is not MISS:
+            return hit
         tmeta = snap["tables"].get(table, {})
         ref = tmeta.get("delmask", {}).get(str(seg))
         keep = None
@@ -280,11 +415,164 @@ class _StoreBase:
             keep[: len(deleted)] = ~deleted.astype(bool)
             if keep.all():
                 keep = None
-        with self._delmask_mu:
-            if len(self._delmask_cache) >= DELMASK_CACHE_ENTRIES:
-                self._delmask_cache.clear()
-            self._delmask_cache[key] = keep
+        self._delmask_cache.put(key, keep, version=version)
         return keep
+
+    # ---- zone maps and block indexes (the read path's pruning) ----------
+    @property
+    def last_prune(self):
+        """(blocks kept, blocks total) of THIS THREAD's last pruned read:
+        the staging pool reads segments concurrently, so the stat is per
+        thread; each unit reads its own right after its read."""
+        return getattr(self._tl, "last_prune", None)
+
+    @last_prune.setter
+    def last_prune(self, value) -> None:
+        self._tl.last_prune = value
+
+    @staticmethod
+    def _index_blocks_for(values, blocks, op, val) -> set:
+        """Blocks containing any value satisfying ``op val``: equality is
+        the point probe, range ops slice the sorted value run — the btree
+        range-scan analog (nbtsearch.c _bt_first) over block addresses.
+        On unclustered data a wide range keeps most blocks; a selective
+        range keeps only the blocks its few values live in."""
+        if op == "=":
+            lo = np.searchsorted(values, val, side="left")
+            hi = np.searchsorted(values, val, side="right")
+        elif op == "<":
+            lo, hi = 0, np.searchsorted(values, val, side="left")
+        elif op == "<=":
+            lo, hi = 0, np.searchsorted(values, val, side="right")
+        elif op == ">":
+            lo, hi = np.searchsorted(values, val, side="right"), len(values)
+        elif op == ">=":
+            lo, hi = np.searchsorted(values, val, side="left"), len(values)
+        else:
+            return set(blocks.tolist())
+        return set(blocks[lo:hi].tolist())
+
+    @staticmethod
+    def _build_block_index(data: np.ndarray, block_rows: list):
+        """Sorted (value, block) pairs, deduped per block, of one file's
+        (or chunk's) values split into blocks of ``block_rows`` rows: the
+        block index a CREATE INDEX keeps per data file."""
+        vals_parts, blk_parts = [], []
+        row = 0
+        for i, n in enumerate(block_rows):
+            u = np.unique(data[row:row + n])
+            vals_parts.append(u)
+            blk_parts.append(np.full(len(u), i, np.int32))
+            row += n
+        values = (np.concatenate(vals_parts) if vals_parts
+                  else np.empty(0, data.dtype))
+        blocks = (np.concatenate(blk_parts) if blk_parts
+                  else np.empty(0, np.int32))
+        order = np.argsort(values, kind="stable")
+        return values[order], blocks[order]
+
+    def _select_blocks(self, entries, prune, indexed_cols):
+        """The zone-map and block-index decision over one segment's data
+        files: ``entries`` yields (fileno, column, block list, index
+        loader) for each file of a predicate column. A block survives only
+        if EVERY pushed predicate could match its zone map [zmin, zmax]
+        AND, on an indexed column, the block index says a matching value
+        is present. -> ({fileno: [block idx]}, kept, total, {fileno: rows
+        dropped}); filenos absent from the dict keep all blocks."""
+        keep: dict = {}
+        dropped: dict = {}
+        nblocks: dict = {}
+        by_col: dict = {}
+        for col, op, val in prune:
+            by_col.setdefault(col, []).append((op, val))
+        for fileno, col, blocks, load_index in entries:
+            preds = by_col.get(col)
+            if not preds:
+                continue
+            nblocks[fileno] = len(blocks)
+            idx_keep: set | None = None
+            if col in indexed_cols:
+                vals, blks = load_index()
+                for op, v in preds:
+                    hit = self._index_blocks_for(vals, blks, op, v)
+                    idx_keep = hit if idx_keep is None else idx_keep & hit
+            ok = []
+            for i, b in enumerate(blocks):
+                if idx_keep is not None and i not in idx_keep:
+                    continue
+                if "zmin" not in b:
+                    ok.append(i)
+                    continue
+                lo, hi = b["zmin"], b["zmax"]
+                good = True
+                for op, val in preds:
+                    if not ((op == "=" and lo <= val <= hi)
+                            or (op == "<" and lo < val)
+                            or (op == "<=" and lo <= val)
+                            or (op == ">" and hi > val)
+                            or (op == ">=" and hi >= val)):
+                        good = False
+                        break
+                if good:
+                    ok.append(i)
+            prev = keep.get(fileno)
+            if prev is not None:
+                prev_set = set(prev)
+                ok = [i for i in ok if i in prev_set]
+            keep[fileno] = ok
+            kept_set = set(ok)
+            dropped[fileno] = sum(b["nrows"] for i, b in enumerate(blocks)
+                                  if i not in kept_set)
+        kept = sum(len(ok) for ok in keep.values())
+        total = sum(nblocks.get(f, 0) for f in keep)
+        return keep, kept, total, dropped
+
+    def _indexed_cols(self, table: str) -> frozenset:
+        schema = self.catalog.get(table)
+        return frozenset(d["column"]
+                         for d in getattr(schema, "indexes", {}).values())
+
+    def prune_plan(self, table: str, seg: int, snapshot: dict, prune):
+        """The kept blocks of a pruned read of one segment: None when no
+        pruning applies (no predicates, or a deletion bitmap: pruned blocks
+        would desync its row numbering), else (keep {fileno: [blocks]},
+        kept, total, rows the read returns). Cached per manifest version
+        and index set: staging asks once for the capacity and once per
+        read."""
+        if not prune:
+            return None
+        if self.delmask_keep(table, seg, snapshot) is not None:
+            return None
+        version = snapshot.get("version", 0)
+        idx_cols = self._indexed_cols(table)
+        key = (table, seg, version, tuple(prune), idx_cols)
+        hit = self._prune_cache.get(key, MISS)
+        if hit is not MISS:
+            return hit
+        keep, kept, total, dropped = self._kept_blocks(
+            table, seg, snapshot, prune, idx_cols)
+        nrows = self.segment_rowcounts(table, snapshot)[seg]
+        out = (keep, kept, total, nrows - sum(dropped.values()))
+        self._prune_cache.put(key, out, version=version)
+        return out
+
+    def pruned_rowcounts(self, table: str, snapshot: dict, prune,
+                         parts=None) -> list[int]:
+        """Per-segment rows a read with ``prune`` returns (the visible rows
+        where no pruning applies): a pruned scan's staged capacity. A
+        partitioned parent sums its children (or ``parts``)."""
+        out = self._sum_over(table, parts, lambda n: self.pruned_rowcounts(
+            n, snapshot, prune))
+        if out is not None:
+            return out
+        live = self.live_rowcounts(table, snapshot)
+        if not prune:
+            return live
+        out = []
+        for seg, n in enumerate(live):
+            plan = self.prune_plan(table, seg, snapshot, prune)
+            out.append(n if plan is None else plan[3])
+        return out
 
     def _live_rows(self, table: str, snap: dict):
         """-> (enc, valids) of every visible row of the table in segment
@@ -381,6 +669,35 @@ class _StoreBase:
         return new
 
 
+def zone_blocks(values: np.ndarray,
+                block_rows: int = DEFAULT_BLOCK_ROWS) -> list[dict]:
+    """Per-block zone maps of one column of a chunk, exactly as a block
+    file's footer holds them (storage/blockfile.py write_column_file):
+    {"nrows"} per block of ``block_rows`` rows, with exact int bounds for
+    integer columns and NaN-free float bounds; bool columns and all-NaN
+    blocks get no zone (never pruned)."""
+    n = len(values)
+    starts = np.arange(0, n, block_rows, dtype=np.int64)
+    blocks = [{"nrows": int(min(block_rows, n - st))} for st in starts]
+    if not n or values.dtype.kind not in ("i", "u", "f") \
+            or values.dtype.itemsize <= 1:
+        return blocks
+    if values.dtype.kind == "f":
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            lo = np.fmin.reduceat(values, starts)
+            hi = np.fmax.reduceat(values, starts)
+        for b, a, z in zip(blocks, lo.tolist(), hi.tolist()):
+            if not np.isnan(a):
+                b["zmin"], b["zmax"] = float(a), float(z)
+    else:
+        lo = np.minimum.reduceat(values, starts).tolist()
+        hi = np.maximum.reduceat(values, starts).tolist()
+        for b, a, z in zip(blocks, lo, hi):
+            b["zmin"], b["zmax"] = int(a), int(z)
+    return blocks
+
+
 # ---------------------------------------------------------------------------
 # in memory: connect(path=None)
 # ---------------------------------------------------------------------------
@@ -424,6 +741,9 @@ class MemoryTableStore(_StoreBase):
         self.manifest = _MemoryManifest()
         # chunk id -> (cols {name: array}, valids {name: bool array}, nrows)
         self._chunks: dict[int, tuple[dict, dict, int]] = {}
+        # chunk id -> {column: zone-mapped blocks} (zone_blocks), made at
+        # append time: a chunk is a block file's counterpart
+        self._zones: dict[int, dict[str, list]] = {}
         self._next_chunk = 0
         # bitmap name -> uint8[segment rows] (1 = deleted), never mutated
         self._masks: dict[str, np.ndarray] = {}
@@ -436,12 +756,16 @@ class MemoryTableStore(_StoreBase):
 
     GC_GRACE_S = 30.0   # snapshot readers finish well within this
 
-    def drop_table(self, table: str) -> None:
-        """Forget a dropped table's rows and dictionaries (a new write
-        version, so cached staging of the old table is never reused)."""
+    def drop_table(self, table: str, storage: list | None = None) -> None:
+        """Forget a dropped table's rows (a partitioned table's children:
+        ``storage``) and dictionaries (a new write version, so cached
+        staging of the old table is never reused)."""
         with self._lock:
-            self._forget_table(table)
-            self._invalidate_dicts(table)
+            for name in (storage or self._storage_names(table)):
+                self._forget_table(name)
+            if "#" not in table:
+                # a dropped partition's siblings keep the dictionaries
+                self._invalidate_dicts(table)
             self.manifest._version += 1
 
     def _forget_table(self, table: str) -> None:
@@ -499,6 +823,7 @@ class MemoryTableStore(_StoreBase):
             cid = self._next_chunk
             self._next_chunk += 1
             self._chunks[cid] = (cols, vals, len(idx))
+            self._zones[cid] = {k: zone_blocks(a) for k, a in cols.items()}
             segs.setdefault(s, []).append(cid)
             counts[s] = counts.get(s, 0) + len(idx)
 
@@ -543,25 +868,51 @@ class MemoryTableStore(_StoreBase):
     def replace_contents(self, table: str, enc: dict, valids: dict) -> None:
         """Republish a table whole (a DELETE without WHERE, an UPDATE
         without WHERE): placement is recomputed, bitmaps go."""
-        schema = self.catalog.get(table)
-        self._check_not_null(schema, valids)
-        nrows = len(next(iter(enc.values()))) if enc else 0
+        self.replace_parts([(table, enc, valids)])
+
+    def insert_parts(self, items: list) -> int:
+        """A partitioned table's routed append: [(child, columns, valids)]
+        appended in one version (the JAX session's one transaction over
+        the children). -> rows written."""
+        encoded = []
+        for child, columns, valids in items:
+            valids = dict(valids or {})
+            schema, enc, nrows = self._encode(child, columns, valids)
+            encoded.append((child, schema, enc, valids, nrows))
         with self._lock:
-            self._append(table, schema, enc, dict(valids or {}), nrows,
-                         replace=True)
+            for child, schema, enc, valids, nrows in encoded:
+                self._append(child, schema, enc, valids, nrows)
+            self.manifest._version += 1
+        return sum(e[4] for e in encoded)
+
+    def replace_parts(self, items: list) -> None:
+        """A partitioned table republished whole: [(child, enc, valids)],
+        every child replaced in one version, so no reader sees a row
+        twice or not at all while an UPDATE moves it between children."""
+        for child, enc, valids in items:
+            self._check_not_null(self.catalog.get(child), valids)
+        with self._lock:
+            for child, enc, valids in items:
+                nrows = len(next(iter(enc.values()))) if enc else 0
+                self._append(child, self.catalog.get(child), enc,
+                             dict(valids or {}), nrows, replace=True)
             self.manifest._version += 1
 
     def rewrite_table(self, table: str, new_numsegments: int) -> int:
-        """VACUUM's compaction: every live row re-placed at the table's
-        width, without bitmaps. -> rows kept."""
+        """VACUUM's compaction, and expand's rewrite at a new width
+        (ALTER TABLE ... EXPAND TABLE, tablecmds.c): every live row
+        re-placed at ``new_numsegments``, without bitmaps; the catalog's
+        width follows. A partition child's rewrite moves the parent's
+        shared policy once. -> rows kept."""
         schema = self.catalog.get(table)
-        if new_numsegments != schema.policy.numsegments:
-            raise NotImplementedError(
-                "changing a table's width (expand): ROADMAP Queue 1 item "
-                "1a-ii")
         with self._lock:
             enc, valids = self._live_rows(table, self.manifest.snapshot())
             nrows = len(next(iter(enc.values()))) if enc else 0
+            if new_numsegments != schema.policy.numsegments:
+                schema.policy = DistPolicy(schema.policy.kind,
+                                           schema.policy.keys,
+                                           new_numsegments)
+                self.catalog._save()
             self._append(table, schema, enc, valids, nrows, replace=True)
             self.manifest._version += 1
         return nrows
@@ -578,37 +929,103 @@ class MemoryTableStore(_StoreBase):
                     continue
                 for cid in cids:
                     self._chunks.pop(cid, None)
+                    self._zones.pop(cid, None)
                 for mid in mids:
                     self._masks.pop(mid, None)
                 removed += len(cids) + len(mids)
             self._pending_gc = keep
         return removed
 
-    def _seg_chunks(self, table: str, seg: int, snapshot) -> list:
+    def _seg_cids(self, table: str, seg: int, snapshot) -> list:
         snap = snapshot or self.manifest.snapshot()
         tmeta = snap["tables"].get(table, {"segfiles": {}})
-        return [self._chunks[cid] for cid in tmeta["segfiles"].get(str(seg),
-                                                                   [])]
+        return list(tmeta["segfiles"].get(str(seg), []))
 
-    def read_segment(self, table: str, seg: int, columns=None,
-                     snapshot: dict | None = None, prune=None, dest=None):
-        """-> (cols {name: array}, valids {name: bool array | None},
-        nrows) of one segment's visible rows under ``snapshot`` (rows its
-        deletion bitmap marks are dropped). Zone-map pruning is not
-        applied (every row is returned, which is what a scan without
-        pruning reads); ``dest`` is accepted and unused."""
-        schema = self.catalog.get(table)
+    def _seg_chunks(self, table: str, seg: int, snapshot) -> list:
+        return [self._chunks[cid]
+                for cid in self._seg_cids(table, seg, snapshot)]
+
+    def block_index(self, table: str, cid: int, col: str):
+        """The block index of one chunk's column: sorted (value, block)
+        pairs (the directory store's .bidx.npz sidecar), built on first use
+        and kept in the block cache (chunks are immutable)."""
+        key = ("@chunk", cid, col)
+        hit = self._bidx_cache.get(key, MISS)
+        if hit is not MISS:
+            return hit
+        out = self._build_block_index(
+            self._chunks[cid][0][col],
+            [b["nrows"] for b in self._zones[cid][col]])
+        self._bidx_cache.put(key, out,
+                             nbytes=int(out[0].nbytes + out[1].nbytes))
+        return out
+
+    def build_block_indexes(self, table: str, cols: set,
+                            snapshot: dict | None = None) -> int:
+        """CREATE INDEX's eager build over every chunk of ``table`` holding
+        an indexed column. -> indexes built."""
         snap = snapshot or self.manifest.snapshot()
-        chunks = self._seg_chunks(table, seg, snap)
+        n = 0
+        for seg in range(self.catalog.get(table).policy.numsegments):
+            for cid in self._seg_cids(table, seg, snap):
+                for col in cols:
+                    if col in self._chunks[cid][0]:
+                        self.block_index(table, cid, col)
+                        n += 1
+        return n
+
+    def _kept_blocks(self, table, seg, snapshot, prune,
+                     indexed_cols=frozenset()):
+        """The directory store's _kept_blocks over this segment's chunks:
+        a chunk is a file number, its zone maps the file's footer."""
+        entries = []
+        for cid in self._seg_cids(table, seg, snapshot):
+            for col in {c for c, _, _ in prune}:
+                blocks = self._zones[cid].get(col)
+                if blocks is not None:
+                    entries.append(
+                        (cid, col, blocks,
+                         lambda cid=cid, col=col: self.block_index(
+                             table, cid, col)))
+        return self._select_blocks(entries, prune, indexed_cols)
+
+    def _read_storage(self, table: str, seg: int, columns, snap: dict,
+                      prune, dest):
+        """read_segment of one storage table: its rows its deletion bitmap
+        marks are dropped. ``dest`` is accepted and unused."""
+        schema = self.catalog.get(table)
+        cids = self._seg_cids(table, seg, snap)
+        chunks = [self._chunks[cid] for cid in cids]
         keep = self.delmask_keep(table, seg, snap)
+        self.last_prune = None
+        plan = self.prune_plan(table, seg, snap, prune)
+        if plan is not None:
+            bkeep = plan[0]
+            self.last_prune = (plan[1], plan[2])
+            # each chunk's kept rows, as a row index (None = all)
+            rows_of = []
+            for cid, (_, _, n) in zip(cids, chunks):
+                ok = bkeep.get(cid)
+                if ok is None:
+                    rows_of.append(None)
+                    continue
+                blocks = next(iter(self._zones[cid].values()))
+                starts = np.cumsum([0] + [b["nrows"] for b in blocks])
+                rows_of.append(np.concatenate(
+                    [np.arange(starts[i], starts[i + 1]) for i in ok])
+                    if ok else np.empty(0, np.int64))
+        else:
+            rows_of = [None] * len(chunks)
         want = columns if columns is not None else schema.column_names
-        nrows = sum(n for _, _, n in chunks)
+        nrows = sum(n if r is None else len(r)
+                    for (_, _, n), r in zip(chunks, rows_of))
         cols, valids = {}, {}
         for name in want:
             if name.startswith("@"):
                 raise NotImplementedError(f"{name}: {_RAW_LATER}")
             c = schema.column(name)
-            parts = [cc[name] for cc, _, _ in chunks]
+            parts = [cc[name] if r is None else cc[name][r]
+                     for (cc, _, _), r in zip(chunks, rows_of)]
             if len(parts) == 1:
                 cols[name] = parts[0]
             elif parts:
@@ -616,9 +1033,11 @@ class MemoryTableStore(_StoreBase):
             else:
                 cols[name] = np.empty(0, dtype=c.type.np_dtype)
             if any(name in vv for _, vv, _ in chunks):
+                vparts = [vv.get(name, np.ones(n, dtype=bool))
+                          for _, vv, n in chunks]
                 valids[name] = np.concatenate(
-                    [vv.get(name, np.ones(n, dtype=bool))
-                     for _, vv, n in chunks])
+                    [v if r is None else v[r]
+                     for v, r in zip(vparts, rows_of)])
             else:
                 valids[name] = None
             if keep is not None:
@@ -629,46 +1048,32 @@ class MemoryTableStore(_StoreBase):
             nrows = int(keep.sum())
         return cols, valids, nrows
 
-    def has_nulls(self, table: str, col: str,
-                  snapshot: dict | None = None) -> bool:
-        """True when any committed write of the column carried a validity
-        mask (the JAX store's .valid file)."""
-        schema = self.catalog.get(table)
-        return any(col in vv for s in range(schema.policy.numsegments)
-                   for _, vv, _ in self._seg_chunks(table, s, snapshot))
+    def _valid_columns(self, table: str, snap: dict) -> set:
+        """The columns of a storage table a committed write gave a
+        validity mask."""
+        nseg = self.catalog.get(table).policy.numsegments
+        return {c for s in range(nseg)
+                for _, vv, _ in self._seg_chunks(table, s, snap) for c in vv}
 
     def column_bounds(self, table: str, col: str,
                       snapshot: dict | None = None):
-        """Global [min, max] over every committed write of a stored column
-        (values at NULL positions included, as the JAX store's block zone
-        maps include them); None for columns without zones (bool) or when a
-        write holds only NaN, or no rows."""
-        schema = self.catalog.get(table)
+        """Global [min, max] over every committed block of a stored column
+        (its zone maps; values at NULL positions included, as the JAX
+        store's block zone maps include them); None when a block has no
+        zone (bool, all-NaN) or there are no rows."""
+        nseg = self.catalog.get(table).policy.numsegments
         lo = hi = None
-        for s in range(schema.policy.numsegments):
-            for cc, _, n in self._seg_chunks(table, s, snapshot):
-                if not n:
-                    continue
-                a = cc[col]
-                if a.dtype.itemsize <= 1:
-                    return None
-                if a.dtype.kind == "f":
-                    if np.isnan(a).all():
-                        return None
-                    a_lo, a_hi = float(np.nanmin(a)), float(np.nanmax(a))
-                else:
-                    a_lo, a_hi = int(a.min()), int(a.max())
-                lo = a_lo if lo is None else min(lo, a_lo)
-                hi = a_hi if hi is None else max(hi, a_hi)
+        for name in self._storage_names(table):
+            for s in range(nseg):
+                for cid in self._seg_cids(name, s, snapshot):
+                    for b in self._zones[cid].get(col, ()):
+                        if not b["nrows"]:
+                            continue
+                        if "zmin" not in b:
+                            return None
+                        lo = b["zmin"] if lo is None else min(lo, b["zmin"])
+                        hi = b["zmax"] if hi is None else max(hi, b["zmax"])
         return None if lo is None else (lo, hi)
-
-    def segment_rowcounts(self, table: str,
-                          snapshot: dict | None = None) -> list[int]:
-        schema = self.catalog.get(table)
-        snap = snapshot or self.manifest.snapshot()
-        tmeta = snap["tables"].get(table, {"nrows": {}})
-        return [tmeta["nrows"].get(str(s), 0)
-                for s in range(schema.policy.numsegments)]
 
 
 # ---------------------------------------------------------------------------
@@ -695,9 +1100,11 @@ class TableStore(_StoreBase):
         # the cluster log for quarantine events); optional for bare use
         self.settings = None
         self.log = None
+        # decoded block files: (table, rel, block indices | None) -> array;
         # parsed, verified footers: (table, rel) -> footer. Committed block
-        # files are immutable; a quarantine drops its entry
-        self._footers: dict = {}
+        # files are immutable; a quarantine drops their entries
+        self._block_cache = self.blockcache.cache("blocks")
+        self._footer_cache = self.blockcache.cache("footers")
         # per-(table, rel) locks and generations: parallel staging units
         # tripping the same bad file quarantine it once
         self._repair_mu = threading.Lock()
@@ -795,8 +1202,16 @@ class TableStore(_StoreBase):
         1 item 10)."""
         if err.cause != "missing":
             self.quarantine_file(path, err)
+            self._drop_bidx(path)   # the sidecar may index the bad bytes
             self._mark_rel_changed(table, rel)
         raise err
+
+    def _drop_bidx(self, path: str) -> None:
+        if path.endswith(".ggb"):
+            try:
+                os.remove(path[: -len(".ggb")] + ".bidx.npz")
+            except OSError:
+                pass
 
     def _repair_lock_for(self, table: str, rel: str) -> threading.Lock:
         with self._repair_mu:
@@ -806,10 +1221,15 @@ class TableStore(_StoreBase):
             return lk
 
     def _mark_rel_changed(self, table: str, rel: str) -> None:
+        """A quarantine moved this rel's bytes away: bump the repair
+        generation (waiting readers re-judge the file) and drop its cached
+        blocks, footer and block index."""
         with self._repair_mu:
             self._repair_gen[(table, rel)] = \
                 self._repair_gen.get((table, rel), 0) + 1
-            self._footers.pop((table, rel), None)
+        self._block_cache.drop(lambda k: k[0] == table and k[1] == rel)
+        self._footer_cache.pop((table, rel), None)
+        self._bidx_cache.pop((table, rel), None)
 
     def _read_checked(self, table: str, rel: str, reader):
         """Run ``reader(path, content)``; corruption (or a vanished
@@ -843,27 +1263,127 @@ class TableStore(_StoreBase):
             err.locate(table=table, content=content, relpath=rel)
             self.handle_corruption(table, content, rel, path, err)
 
-    def read_file(self, table: str, rel: str, out: np.ndarray | None = None
-                  ) -> np.ndarray:
-        """Checked read of one manifest-referenced block file; ``out`` is a
-        destination its frames decode straight into when it fits (the
-        result is then a view of it)."""
+    def read_file(self, table: str, rel: str,
+                  block_indices: list[int] | None = None,
+                  out: np.ndarray | None = None) -> np.ndarray:
+        """Checked read of one manifest-referenced block file (all blocks,
+        or ``block_indices``), served from the block cache when resident
+        (committed block files are immutable; a quarantine drops them). A
+        miss counts scan_files_read / scan_bytes_decoded. ``out``: a
+        destination the frames decode straight into on a miss (a staging
+        buffer's slot; the value returned is then a view of it). The cache
+        keeps a copy of its own there: a view would keep the whole
+        staging buffer, every segment's slot, alive beyond the bytes it
+        is charged. A hit ignores ``out``: the caller copies."""
+        key = (table, rel,
+               None if block_indices is None else tuple(block_indices))
+        hit = self._block_cache.get(key, MISS)
+        if hit is not MISS:
+            return hit
         arr = self._read_checked(
             table, rel,
-            lambda p, c: read_column_file(p, segment=c, out=out))
+            lambda p, c: read_column_file(p, block_indices, segment=c,
+                                          out=out))
         counters.inc("scan_files_read")
         counters.inc("scan_bytes_decoded", int(arr.nbytes))
+        self._block_cache.put(
+            key, arr.copy() if np.may_share_memory(arr, out) else arr)
         return arr
 
     def read_footer_checked(self, table: str, rel: str) -> dict:
-        with self._repair_mu:
-            hit = self._footers.get((table, rel))
-        if hit is not None:
+        hit = self._footer_cache.get((table, rel), MISS)
+        if hit is not MISS:
             return hit
         footer = self._read_checked(table, rel, lambda p, c: read_footer(p))
-        with self._repair_mu:
-            self._footers[(table, rel)] = footer
+        self._footer_cache.put((table, rel), footer, nbytes=512)
         return footer
+
+    # ---- block indexes (CREATE INDEX) ----------------------------------
+    def block_index(self, base: str, rel: str, table: str | None = None):
+        """Per-segfile block-value index (the btree/bitmap AM analog for
+        append-only block storage): sorted (value, block) pairs, deduped
+        per block, as a rebuildable ``.bidx.npz`` sidecar next to the data
+        file, the JAX store's format. An equality probe binary-searches
+        the values and returns exactly the blocks holding the key —
+        block-selective scans on UNCLUSTERED data, where zone maps keep
+        everything. Sidecars are derived data: built lazily, not in the
+        manifest, reaped with their data file. ``table`` (the storage
+        table owning ``rel``) makes the build's reads checked ones."""
+        if table is not None:
+            hit = self._bidx_cache.get((table, rel), MISS)
+            if hit is not MISS:
+                return hit
+        path = os.path.join(base, rel)
+        sidecar = path[:-len(".ggb")] + ".bidx.npz"
+        out = None
+        try:
+            if os.path.getmtime(sidecar) >= os.path.getmtime(path):
+                with np.load(sidecar) as z:
+                    out = (z["values"], z["blocks"])
+        except (OSError, ValueError, KeyError):
+            pass
+        if out is None:
+            if table is not None:
+                footer = self.read_footer_checked(table, rel)
+                data = self.read_file(table, rel)
+            else:
+                footer = read_footer(path)
+                data = read_column_file(path)
+            out = self._build_block_index(
+                data, [b["nrows"] for b in footer["blocks"]])
+            try:
+                fd, tmp = tempfile.mkstemp(dir=base, prefix=".bidx",
+                                           suffix=".npz")
+                os.close(fd)
+                np.savez(tmp, values=out[0], blocks=out[1])
+                os.replace(tmp, sidecar)
+            except OSError:
+                pass   # the in-memory index still serves
+        if table is not None:
+            self._bidx_cache.put((table, rel), out,
+                                 nbytes=int(out[0].nbytes + out[1].nbytes))
+        return out
+
+    def build_block_indexes(self, table: str, cols: set,
+                            snapshot: dict | None = None) -> int:
+        """CREATE INDEX's eager build: the sidecar of every data file of an
+        indexed column, so the first probe does not pay it. -> built."""
+        snap = snapshot or self.manifest.snapshot()
+        tmeta = snap["tables"].get(table)
+        n = 0
+        if not tmeta:
+            return n
+        for segkey, files in tmeta["segfiles"].items():
+            base = os.path.join(self.data_root(int(segkey)), table)
+            for rel in files:
+                fn = os.path.basename(rel)
+                parts = fn.split(".")
+                if len(parts) == 3 and fn.endswith(".ggb") \
+                        and parts[0] in cols:
+                    self.block_index(base, rel, table=table)
+                    n += 1
+        return n
+
+    def _kept_blocks(self, table, seg, snapshot, prune,
+                     indexed_cols=frozenset()):
+        """Per data-fileno block keep-lists of one segment (the JAX store's
+        _kept_blocks): one footer read per data file of a predicate
+        column, and the block index of an indexed one."""
+        tmeta = snapshot["tables"].get(table, {"segfiles": {}})
+        base = os.path.join(self.data_root(seg), table)
+        pcols = {c for c, _, _ in prune}
+        entries = []
+        for rel in tmeta["segfiles"].get(str(seg), []):
+            fn = os.path.basename(rel)
+            parts = fn.split(".")
+            if len(parts) != 3 or not fn.endswith(".ggb") \
+                    or parts[0] not in pcols:
+                continue   # data files only: <col>.<fileno>.ggb
+            entries.append(
+                (parts[1], parts[0],
+                 self.read_footer_checked(table, rel)["blocks"],
+                 lambda rel=rel: self.block_index(base, rel, table=table)))
+        return self._select_blocks(entries, prune, indexed_cols)
 
     # ---- write path ----------------------------------------------------
     def insert(self, table: str, columns: dict,
@@ -1112,13 +1632,14 @@ class TableStore(_StoreBase):
         self.gc_files(table, old)
         self.maybe_fold_manifest()
 
-    def replace_contents(self, table: str, enc: dict, valids: dict) -> None:
-        """Autocommit full-table replacement (a DELETE or UPDATE without
-        WHERE): placement recomputed, so an updated distribution key moves
-        its rows; the bitmaps and the old files go."""
+    def stage_replace(self, tx: dict, table: str, enc: dict,
+                      valids: dict) -> list:
+        """Stage a full-table replacement into a manifest transaction:
+        placement recomputed, so an updated distribution key moves its
+        rows; the bitmaps go. -> the old files' rels (unreachable once the
+        transaction commits)."""
         schema = self.catalog.get(table)
         self._check_not_null(schema, valids)
-        tx = self.manifest.begin()
         old_files = [rel for files in tx["tables"].get(
             table, {"segfiles": {}})["segfiles"].values() for rel in files]
         nrows = len(next(iter(enc.values()))) if enc else 0
@@ -1129,31 +1650,110 @@ class TableStore(_StoreBase):
                              valids, self._seg_rows(schema, enc, valids,
                                                     nrows, 0),
                              uuid.uuid4().hex[:12])
-        self.manifest.commit_tables_tx(tx, [table])
-        self.gc_files(table, old_files)
+        return old_files
+
+    def replace_contents(self, table: str, enc: dict, valids: dict) -> None:
+        """Autocommit full-table replacement (a DELETE or UPDATE without
+        WHERE): one per-table delta commit; the old files go GC_GRACE_S
+        later."""
+        self.replace_parts([(table, enc, valids)])
+
+    def replace_parts(self, items: list) -> None:
+        """Replace several storage tables whole in ONE delta commit
+        ([(table, enc, valids)]): a partitioned table's republish, so no
+        reader sees a row twice or not at all while an UPDATE moves it
+        between children."""
+        tx = self.manifest.begin()
+        old = [(t, self.stage_replace(tx, t, enc, valids))
+               for t, enc, valids in items]
+        self.manifest.commit_tables_tx(tx, sorted({t for t, _, _ in items}))
+        for t, rels in old:
+            self.gc_files(t, rels)
         self.maybe_fold_manifest()
 
+    def insert_parts(self, items: list) -> int:
+        """A partitioned table's routed append: [(child, columns, valids)]
+        staged into ONE manifest transaction and published by one delta
+        commit over every child (the JAX session's autocommit transaction
+        over the children). A claim conflict restages the files on a fresh
+        snapshot unless the append grew a dictionary. -> rows written."""
+        tx = self.manifest.begin()
+        staged, total = [], 0
+        dict_grew = False
+        for child, columns, valids in items:
+            valids = dict(valids or {})
+            sizes = {c.name: len(self.dictionary(child, c.name))
+                     for c in self.catalog.get(child).columns
+                     if c.type.kind is T.Kind.TEXT}
+            schema, enc, nrows = self._encode(child, columns, valids)
+            dict_grew |= any(len(self.dictionary(child, n)) != sz
+                             for n, sz in sizes.items())
+            tmeta = tx["tables"].setdefault(child,
+                                            {"segfiles": {}, "nrows": {}})
+            nseg = schema.policy.numsegments
+            seg_rows = self._seg_rows(
+                schema, enc, valids, nrows,
+                sum(tmeta["nrows"].get(str(s), 0) for s in range(nseg)))
+            staged.append((child, self._write_segfiles(
+                schema, child, tmeta, enc, valids, seg_rows,
+                uuid.uuid4().hex[:12])))
+            total += nrows
+        tables = sorted({c for c, _ in staged})
+        if not tables:
+            return 0
+        last = None
+        for attempt in range(20):
+            try:
+                handle = self.manifest.prepare_delta(tx, tables)
+                break
+            except RuntimeError as e:
+                last = e
+                if dict_grew:
+                    for child in tables:
+                        self._invalidate_dicts(child)
+                    raise
+                counters.inc("manifest_cas_retry_total")
+                time.sleep(0.01 * (attempt + 1))
+                tx = self.manifest.begin()
+                for child, records in staged:
+                    merge_segfile_records(tx, child, records)
+        else:
+            raise RuntimeError(
+                f"write-write conflict persisted after retries: {last}")
+        self.flush_dicts(tables[0])
+        try:
+            self.manifest.commit_delta(handle)
+        except BaseException:
+            self.manifest.abort_delta(handle)
+            raise
+        self.maybe_fold_manifest()
+        return total
+
     def rewrite_table(self, table: str, new_numsegments: int) -> int:
-        """VACUUM's compaction: every live row re-placed and published in
-        one root commit without bitmaps; the old files go GC_GRACE_S
-        later (the JAX store deletes them at once). A different
-        width is gpexpand's (ROADMAP Queue 1 item 1a-ii). -> rows kept."""
+        """VACUUM's compaction, and expand's rewrite at a new width (ALTER
+        TABLE ... EXPAND TABLE, tablecmds.c): every live row re-placed at
+        ``new_numsegments`` and published in one root commit without
+        bitmaps. The manifest carries the width, so the layout and the
+        width publish together; the catalog follows (reconcile_widths
+        adopts the manifest's after a crash between the two). A partition
+        child's rewrite moves the parent's shared policy once; its later
+        children read their old segments by file. The old files go
+        GC_GRACE_S later (the JAX store deletes them at once). -> rows
+        kept."""
         schema = self.catalog.get(table)
-        if new_numsegments != schema.policy.numsegments:
-            raise NotImplementedError(
-                "changing a table's width (expand): ROADMAP Queue 1 item "
-                "1a-ii")
         snap = self.manifest.snapshot()
         enc, valids = self._live_rows(table, snap)
         old_files = [rel for files in snap["tables"].get(
             table, {"segfiles": {}})["segfiles"].values() for rel in files]
+        new_policy = DistPolicy(schema.policy.kind, schema.policy.keys,
+                                new_numsegments)
+        placed = dataclasses.replace(schema, policy=new_policy)
         tx = self.manifest.begin()
-        # the manifest carries the width, as the JAX store's rewrite does
         tx["tables"][table] = {"segfiles": {}, "nrows": {},
                                "numsegments": new_numsegments}
         nrows = len(next(iter(enc.values()))) if enc else 0
-        self._write_segfiles(schema, table, tx["tables"][table], enc,
-                             valids, self._seg_rows(schema, enc, valids,
+        self._write_segfiles(placed, table, tx["tables"][table], enc,
+                             valids, self._seg_rows(placed, enc, valids,
                                                     nrows, 0),
                              uuid.uuid4().hex[:12])
         v = self.manifest.prepare(tx)
@@ -1162,8 +1762,30 @@ class TableStore(_StoreBase):
         except BaseException:
             self.manifest.abort(v)
             raise
+        if schema.policy.numsegments != new_numsegments:
+            schema.policy = new_policy
+            self.catalog._save()
         self.gc_files(table, old_files)
         return nrows
+
+    def reconcile_widths(self) -> None:
+        """Crash recovery for expansion: the manifest's per-table width is
+        the commit record; where the catalog lags (a crash between the
+        manifest commit and the catalog save in rewrite_table), adopt the
+        manifest's."""
+        snap = self.manifest.snapshot()
+        changed = False
+        for name, tmeta in snap["tables"].items():
+            width = tmeta.get("numsegments")
+            if width is None or name not in self.catalog:
+                continue
+            schema = self.catalog.get(name)
+            if schema.policy.numsegments != width:
+                schema.policy = DistPolicy(schema.policy.kind,
+                                           schema.policy.keys, width)
+                changed = True
+        if changed:
+            self.catalog._save()
 
     GC_GRACE_S = 30.0   # snapshot readers finish well within this
 
@@ -1178,10 +1800,13 @@ class TableStore(_StoreBase):
             self.reap_gc()
             return
         for rel in rels:
+            path = self.seg_file_path(table, rel)
             try:
-                os.remove(self.seg_file_path(table, rel))
+                os.remove(path)
             except OSError:
                 pass
+            if len(os.path.basename(rel).split(".")) == 3:
+                self._drop_bidx(path)   # the sidecar dies with its file
 
     def reap_gc(self) -> int:
         """Delete deferred files older than GC_GRACE_S. -> how many."""
@@ -1194,41 +1819,61 @@ class TableStore(_StoreBase):
             self.gc_files(table, rels, defer=False)
         return sum(len(r) for _t, _tb, r in due)
 
-    def drop_table(self, table: str) -> None:
+    def drop_table(self, table: str, storage: list | None = None) -> None:
         """DROP TABLE's storage half, as the JAX session does it: one root
-        commit without the table, its delta chain removed, its
-        dictionaries forgotten and its directory deleted."""
+        commit without the table (a partitioned table's children:
+        ``storage``), their delta chains removed, the dictionaries
+        forgotten and the directories deleted."""
+        names = set(storage or self._storage_names(table))
         tx = self.manifest.begin()
-        if table in tx["tables"]:
-            del tx["tables"][table]
+        live = [n for n in names if n in tx["tables"]]
+        for n in live:
+            del tx["tables"][n]
+        if live:
             self.manifest.commit_tx(tx)
-            self.manifest.drop_table_deltas(table)
-        self._invalidate_dicts(table)
-        with self._repair_mu:
-            self._footers = {k: v for k, v in self._footers.items()
-                             if k[0] != table}
-        shutil.rmtree(os.path.join(self.root, "data", table),
-                      ignore_errors=True)
+            for n in live:
+                self.manifest.drop_table_deltas(n)
+        if "#" not in table:
+            # a dropped partition's siblings keep the dictionaries
+            self._invalidate_dicts(table)
+        # a same-named table made later has files of its own
+        for c in (self._block_cache, self._footer_cache, self._bidx_cache):
+            c.drop(lambda k: k[0] in names)
+        for n in names:
+            shutil.rmtree(os.path.join(self.root, "data", n),
+                          ignore_errors=True)
 
     # ---- read path -----------------------------------------------------
-    def read_segment(self, table: str, seg: int, columns=None,
-                     snapshot: dict | None = None, prune=None, dest=None):
-        """-> (cols {name: array}, valids {name: bool array | None},
-        nrows) of one segment's visible rows under ``snapshot``, decoded
-        from its block files: the rows its deletion bitmap marks are
-        dropped, as the JAX store drops them. ``dest`` ({column:
-        preallocated slot}): a column lands straight in its slot (the
-        returned array is then a view of it): a column held in one file
-        of a segment without deletions decodes into it, any other is
-        assembled into it. Zone-map pruning waits for ROADMAP Queue 1
-        item 1a-ii: every visible row is returned."""
+    def _read_storage(self, table: str, seg: int, columns, snap: dict,
+                      prune, dest):
+        """read_segment of one storage table, decoded from its block
+        files: the rows its deletion bitmap marks are dropped, as the JAX
+        store drops them; a file number's columns share their block
+        partitioning, so pruned blocks are skipped for EVERY column. A
+        column held in one file of an unpruned segment without deletions
+        decodes straight into its ``dest`` slot, any other is assembled
+        into it."""
         schema = self.catalog.get(table)
-        snap = snapshot or self.manifest.snapshot()
         tmeta = snap["tables"].get(table, {"segfiles": {}, "nrows": {}})
         files = tmeta["segfiles"].get(str(seg), [])
         want = columns if columns is not None else schema.column_names
         nrows = int(tmeta["nrows"].get(str(seg), 0))
         keep = self.delmask_keep(table, seg, snap)
+        self.last_prune = None
+        plan = self.prune_plan(table, seg, snap, prune)
+        bkeep = None
+        if plan is not None:
+            bkeep = plan[0]
+            self.last_prune = (plan[1], plan[2])
+
+        def bidx(rel):
+            # a file number's kept blocks apply to its data AND valid
+            # files alike, or the two would misalign
+            if bkeep is None:
+                return None
+            parts = os.path.basename(rel).split(".")
+            return bkeep.get(parts[1] if len(parts) >= 3 else None)
+
         cols: dict[str, np.ndarray] = {}
         valids: dict[str, np.ndarray | None] = {}
         for name in want:
@@ -1248,17 +1893,20 @@ class TableStore(_StoreBase):
                     else:
                         data_rels.append(rel)
             d = dest.get(name) if dest is not None else None
-            whole = d is not None and keep is None and len(data_rels) == 1
-            parts = [self.read_file(table, rel, out=d if whole else None)
+            whole = d is not None and keep is None and bkeep is None \
+                and len(data_rels) == 1
+            parts = [self.read_file(table, rel, bidx(rel),
+                                    out=d if whole else None)
                      for rel in data_rels]
             got = sum(len(a) for a in parts)
-            if got != nrows:
+            if bkeep is None and got != nrows:
                 raise IOError(f"{table}.{name} seg{seg}: {got} rows, "
                               f"manifest says {nrows}")
             if valid_rels:
                 # files without a .valid sibling are all-valid
                 vmap = {r.replace(".valid.ggb", ".ggb"):
-                        self.read_file(table, r) for r in valid_rels}
+                        self.read_file(table, r, bidx(r))
+                        for r in valid_rels}
                 v = np.concatenate(
                     [vmap.get(r, np.ones(len(a), dtype=np.uint8))
                      for r, a in zip(data_rels, parts)]).astype(bool)
@@ -1266,6 +1914,8 @@ class TableStore(_StoreBase):
             else:
                 valids[name] = None
             cols[name] = self._assemble(parts, keep, d, c.type.np_dtype)
+        if bkeep is not None:
+            nrows = plan[3]
         if keep is not None:
             nrows = int(keep.sum())
         return cols, valids, nrows
@@ -1297,16 +1947,13 @@ class TableStore(_StoreBase):
             off += len(a)
         return out
 
-    def has_nulls(self, table: str, col: str,
-                  snapshot: dict | None = None) -> bool:
-        """True if any committed segfile of this column has a validity
+    def _valid_columns(self, table: str, snap: dict) -> set:
+        """The columns of a storage table with a committed validity
         file."""
-        snap = snapshot or self.manifest.snapshot()
-        marker = f"{col}."
         tmeta = snap["tables"].get(table, {"segfiles": {}})
-        return any(os.path.basename(rel).startswith(marker)
-                   and rel.endswith(".valid.ggb")
-                   for files in tmeta["segfiles"].values() for rel in files)
+        return {os.path.basename(rel).split(".", 1)[0]
+                for files in tmeta["segfiles"].values() for rel in files
+                if rel.endswith(".valid.ggb")}
 
     def column_bounds(self, table: str, col: str,
                       snapshot: dict | None = None):
@@ -1316,28 +1963,22 @@ class TableStore(_StoreBase):
         underestimate). None when a block has no zone (TEXT codes are
         zoned; bool and all-NaN blocks are not) or there are no rows."""
         snap = snapshot or self.manifest.snapshot()
-        tmeta = snap["tables"].get(table, {"segfiles": {}})
         lo = hi = None
-        for files in tmeta["segfiles"].values():
-            for rel in files:
-                fn = os.path.basename(rel)
-                parts = fn.split(".")
-                if len(parts) != 3 or not fn.endswith(".ggb") \
-                        or parts[0] != col:
-                    continue
-                for b in self.read_footer_checked(table, rel)["blocks"]:
-                    if not b["nrows"]:
+        for name in self._storage_names(table):
+            tmeta = snap["tables"].get(name, {"segfiles": {}})
+            for files in tmeta["segfiles"].values():
+                for rel in files:
+                    fn = os.path.basename(rel)
+                    parts = fn.split(".")
+                    if len(parts) != 3 or not fn.endswith(".ggb") \
+                            or parts[0] != col:
                         continue
-                    if "zmin" not in b:
-                        return None
-                    lo = b["zmin"] if lo is None else min(lo, b["zmin"])
-                    hi = b["zmax"] if hi is None else max(hi, b["zmax"])
+                    for b in self.read_footer_checked(name, rel)["blocks"]:
+                        if not b["nrows"]:
+                            continue
+                        if "zmin" not in b:
+                            return None
+                        lo = b["zmin"] if lo is None else min(lo, b["zmin"])
+                        hi = b["zmax"] if hi is None else max(hi, b["zmax"])
         return None if lo is None else (lo, hi)
 
-    def segment_rowcounts(self, table: str,
-                          snapshot: dict | None = None) -> list[int]:
-        schema = self.catalog.get(table)
-        snap = snapshot or self.manifest.snapshot()
-        tmeta = snap["tables"].get(table, {"nrows": {}})
-        return [int(tmeta["nrows"].get(str(s), 0))
-                for s in range(schema.policy.numsegments)]

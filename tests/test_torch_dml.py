@@ -11,8 +11,8 @@ and DECIMAL exactly, float64 within 1e-12 relative). Beside the replay:
     rewritten in a directory), UPDATE appends one segment's files, VACUUM
     compacts the bitmaps away, as the JAX store does;
   * the cases the port does not take yet raise naming their ROADMAP item:
-    a DML inside a transaction (1a-iii), raw TEXT (1e), a width change
-    (1a-ii);
+    a DML inside a transaction (1a-iii), raw TEXT (1e); a width change
+    (expand) gives the JAX package's rows;
   * a warm statement after a write restages (the stage cache is keyed by
     the store's version) and never reads stale tensors; a cached plan
     that binds a TEXT literal does not outlive an INSERT that grows the
@@ -302,14 +302,18 @@ def test_analyze_sees_live_rows_only(tmp_path, devices8):
         t.close()
 
 
-def test_what_waits_raises_naming_its_item(tmp_path):
-    """test_visimap.py's transaction cases (1a-iii), its raw-TEXT case
-    (1e) and its expand case (1a-ii)."""
+def test_what_waits_raises_naming_its_item(tmp_path, devices8):
+    """test_visimap.py's transaction cases (1a-iii) and its raw-TEXT case
+    (1e) raise naming their item; its expand case (a width change in
+    ``rewrite_table``, ported with the block cache) gives the JAX
+    package's rows and widths."""
+    j = greengage_tpu.connect(path=str(tmp_path / "j"), numsegments=4)
     t = greengage_tpu_torch.connect(path=str(tmp_path / "t"), numsegments=4,
                                     device="cpu")
     try:
-        t.sql("create table t (k int, v int) distributed by (k)")
-        t.load_table("t", {"k": np.arange(500), "v": np.arange(500)})
+        for db in (j, t):
+            db.sql("create table t (k int, v int) distributed by (k)")
+            db.load_table("t", {"k": np.arange(500), "v": np.arange(500)})
         for text in ("begin", "commit", "rollback"):
             with pytest.raises(SqlError, match="item 1a-iii"):
                 t.sql(text)
@@ -317,9 +321,13 @@ def test_what_waits_raises_naming_its_item(tmp_path):
         strs = [f"payload-{i:06d}-{'x' * (i % 13)}" for i in range(5000)]
         with pytest.raises(NotImplementedError, match="item 1e"):
             t.load_table("rt", {"k": np.arange(5000), "s": strs})
-        t.sql("delete from t where k >= 100")
-        with pytest.raises(NotImplementedError, match="item 1a-ii"):
-            t.store.rewrite_table("t", 8)
+        _both(j, t, "delete from t where k >= 100")
+        # rt exists in the port only (its raw load raised): it moves empty
+        assert t.expand(8) == dict(j.expand(8), rt=0) == {"t": 100, "rt": 0}
+        assert t.store.segment_rowcounts("t") \
+            == j.store.segment_rowcounts("t")
+        _both(j, t, "select k, v from t order by k")
+        assert not t.store.manifest.snapshot()["tables"]["t"].get("delmask")
     finally:
         t.close()
 

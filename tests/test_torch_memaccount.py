@@ -10,10 +10,11 @@ accounting and the ``mem-<id>.json`` dump, the classifier, the CPU's
 None device stats, the process and owner gauges, the runaway ledger's
 measured flag, and the report with the ``mem``/``metrics`` ops. Left out:
 ``test_explain_analyze_prints_measured_memory_on_warm_statement`` (EXPLAIN
-ANALYZE, ROADMAP Queue 1 item 1c); the block-cache owner of
+ANALYZE, ROADMAP Queue 1 item 1c).
 ``test_owner_tree_charges_staging_blockcache_device`` and the report's
-``block_cache`` key (the block cache, item 1a) — the staging and device
-owners are checked here.
+``block_cache`` key are replayed as the JAX file has them: the staged
+tensors are the block cache's ``stage`` member, so a cold stage charges
+the ``blockcache`` owner too.
 
 Measured admission on the CPU: the CPU has no allocator to read, so the
 estimate governs there; stand-ins for the device stats and the peak
@@ -101,6 +102,28 @@ def test_measured_bytes_attached_and_zero_reanalysis_on_warm_hit(db):
     assert counters.get("mem_analysis_runs") - c0 == 0
     assert counters.get("program_cache_hit") > j0
     assert (r2.stats["mem"]["measured"] or {}) == (meas or {})
+
+
+def test_owner_tree_charges_staging_blockcache_device(db):
+    # force a cold stage (fresh reads and fresh cache inserts)
+    db.executor._stage_cache.clear()
+    db.store.blockcache.clear()
+    r = db.sql(Q)
+    owners = r.stats["mem"]["owners"]
+    assert owners.get("staging", 0) > 0, owners
+    assert owners.get("blockcache", 0) > 0, owners
+    assert owners.get("device", 0) > 0, owners
+    # accounts retire into the ring with the full tree
+    ring = memaccount.ACCOUNTS.ring()
+    assert ring, "completed account did not land in the ring"
+    snap = ring[-1]
+    assert snap["owners"]["staging"]["items"], snap
+    assert snap["owners"]["blockcache"]["items"], snap
+    assert snap["total_bytes"] > 0
+    rep = memaccount.report(db)
+    assert rep["block_cache"]["limit_bytes"] \
+        == db.settings.scan_cache_limit_mb << 20
+    assert rep["block_cache"]["caches"]["stage"]["entries"] > 0
 
 
 def test_owner_tree_charges_staging_and_device(db):

@@ -7,10 +7,7 @@ drain; the storm keeps the JAX file's ``slow`` mark.
 
 A port Database on the CPU (``device="cpu"``) with the JAX test's table,
 loaded with ``load_table`` where the JAX test INSERTs. What differs from
-the JAX file: the port has no block cache (ROADMAP Queue 1 item 1a), so
-the brownout test reads ``cache_factor()`` where the JAX test reads the
-cache's budget, and the ``gg ps`` banner (the CLI, item 11) is not
-checked. Every test resets the controller and the faults; counters are
+the JAX file: the ``gg ps`` banner (the CLI, item 11) is not checked. Every test resets the controller and the faults; counters are
 read as deltas.
 """
 
@@ -343,6 +340,7 @@ def test_resgroup_path_sheds_too(db):
 
 def test_brownout_enter_effects_and_hysteresis(db):
     ctl = overload.CONTROLLER
+    base_limit = db.store.blockcache.limit_bytes()
     e0 = counters.get("brownout_entered_total")
     x0 = counters.get("brownout_exited_total")
     faults.inject("brownout_force", "skip", occurrences=-1)
@@ -350,9 +348,8 @@ def test_brownout_enter_effects_and_hysteresis(db):
     # gauge + counters
     assert counters.get("brownout") == 1
     assert counters.get("brownout_entered_total") == e0 + 1
-    # the block-cache budget factor (brownout_cache_factor, 0.5 default;
-    # the JAX test reads the cache's budget, item 1a here)
-    assert ctl.cache_factor() == 0.5
+    # block-cache budget shrunk by brownout_cache_factor (0.5 default)
+    assert db.store.blockcache.limit_bytes() <= base_limit // 2
     # batch serving disabled while browned out
     db.sql("set batch_serving_enabled = on")
     assert db._batch_eligible({"@params@": [1]}) is False
@@ -371,7 +368,7 @@ def test_brownout_enter_effects_and_hysteresis(db):
     assert ctl.evaluate(db.settings, force=True) is False
     assert counters.get("brownout") == 0
     assert counters.get("brownout_exited_total") == x0 + 1
-    assert ctl.cache_factor() == 1.0
+    assert db.store.blockcache.limit_bytes() == base_limit
     assert ctl.scaled_vmem(1 << 30) == 1 << 30
     assert db._batch_eligible({"@params@": [1]}) is True
     db.sql("set batch_serving_enabled = off")

@@ -6,9 +6,9 @@
 (b) tests/test_plan_cache.py's statements replayed through both sessions:
     equal rows, equal ``plan_cache_hit`` / ``_miss`` counter deltas, equal
     ``stats["plan_cache"]``, and the LRU bound. The JAX test's compile
-    counts have no counterpart (the port compiles no executable) and its
-    partitioned table waits for ROADMAP Queue 1 item 1a; the LIMIT half of
-    that test stays.
+    counts have no counterpart (the port compiles no executable); its
+    partitioned table's pinned partition-key literal and its LIMIT are
+    replayed.
 (c) Warm tiers: a statement whose group table overflows its estimate runs
     at the JAX package's ``tiers_used`` cold, warm and warm with another
     literal (the cap hints live under the plan cache's key), and the
@@ -161,6 +161,26 @@ def test_limit_stays_pinned(dbs):
     _assert_replay_equal(got)
     res, delta = got["torch"]
     assert len(res[1]) == 7 and delta == {"plan_cache_miss": 2}
+
+
+def test_partition_key_literal_stays_pinned(dbs):
+    """tests/test_plan_cache.py (c): a partition key's literal is not
+    hoisted, so static pruning stays value-exact (one child against two)
+    and a changed value is another cache entry."""
+    for d in dbs.values():
+        d.sql("create table pt (d int, m int) distributed by (m) "
+              "partition by range (d) "
+              "(partition p1 start (0) end (100), "
+              " partition p2 start (100) end (200))")
+        d.load_table("pt", {"d": np.arange(200, dtype=np.int32),
+                            "m": np.arange(200, dtype=np.int32)})
+    got = _replay(dbs, ["select count(*) from pt where d < 50",
+                        "select count(*) from pt where d < 150"])
+    _assert_replay_equal(got)
+    res, delta = got["torch"]
+    assert [r.rows()[0][0] for r in res] == [50, 150]
+    assert delta == {"plan_cache_miss": 2}
+    assert [r.stats["partitions"]["pt"] for r in res] == [1, 2]
 
 
 def test_distkey_equality_pinned(dbs):

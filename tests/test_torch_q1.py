@@ -210,7 +210,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                         ("analysis", "plancheck.py"),
                         ("storage", "corruption.py"),
                         ("storage", "native.py"), ("storage", "blockfile.py"),
-                        ("storage", "manifest.py")]:
+                        ("storage", "manifest.py"),
+                        ("storage", "blockcache.py")]:
         assert os.path.join("greengage_tpu_torch", sub, module) in rel
     assert "chip_smoke.py" in rel
     for path in sources:

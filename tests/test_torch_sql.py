@@ -426,7 +426,7 @@ def test_recursive_cte_raises_naming_its_roadmap_item():
 
 @pytest.mark.parametrize("stmt", [
     "copy nation from 'gpfdist://localhost:1/nation.csv'",
-    "create index nation_i on nation (n_nationkey)",
+    "declare c parallel retrieve cursor for select * from nation",
     "begin",
     "set no_such_setting = 1",
 ])

@@ -11,9 +11,12 @@
     over once, and joins its thread; no staging or prefetch thread
     outlives a statement.
 
-Left out: the block cache, file reads, corruption and the microbench of
-tests/test_staging.py (the port's store is in memory until ROADMAP
-Queue 1 item 1a).
+tests/test_staging.py's block-cache cases (the registry, file reads and
+their counters, corruption under parallel readers, the budget) are
+replayed in tests/test_torch_blockcache.py; its mirror repair (ROADMAP
+Queue 1 item 10) and its microbench (bench.py) are left out. Here, a
+whole-table stage and a pruned stage of one table are held to the JAX
+package's rows and both stay cached.
 """
 
 import threading
@@ -161,3 +164,21 @@ def test_no_staging_thread_outlives_the_statement(dbs):
     d.sql("select sum(w) from t")
     assert not [t.name for t in threading.enumerate()
                 if t.ident not in before and t.is_alive()]
+
+
+def test_pruned_and_whole_stagings_coexist(dbs):
+    """A scan with pushed predicates is staged under its own key (its
+    predicates and capacity) beside the whole table's: the two stay cached
+    side by side and each repeat reads nothing."""
+    j, d = dbs["jax"], dbs["torch"]
+    q_all = "select count(*), sum(v) from t"
+    q_cut = "select count(*), sum(v) from t where k < 40"
+    for q in (q_all, q_cut, q_all, q_cut):
+        assert d.sql(q).rows() == j.sql(q).rows()
+    keys = [k for k in d.executor._stage_cache if k[0] == "t"]
+    assert {k[5] for k in keys} == {None, (("k", "<", 40),)}
+    before = len(keys)
+    for q in (q_all, q_cut):
+        d.sql(q)
+    assert len([k for k in d.executor._stage_cache if k[0] == "t"]) \
+        == before
